@@ -1,12 +1,12 @@
-"""Multi-chip GPA: shard a LEEM-style mosaic over a device mesh.
+"""Multi-device GPA: shard a LEEM-style mosaic over a device mesh.
 
 Demonstrates the three parallel axes of pygpa_tpu.parallel:
  1. data-parallel batch of mosaic tiles (extract_displacement_field_batch)
  2. candidate-parallel WFR sweep of one image (wfr_sweep_sharded)
- 3. row-sharded single-image path for images larger than one chip's
-    HBM: pencil-decomposed distributed FFT + spatially-sharded sweep
+ 3. row-sharded single-image path for images larger than one device's
+    memory: pencil-decomposed distributed FFT + spatially-sharded sweep
 
-Runs anywhere: on a TPU pod slice it uses the real mesh; on CPU,
+Runs anywhere: on a multi-GPU host it uses the real mesh; on CPU,
 launch with a virtual mesh, e.g.
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -1,6 +1,6 @@
-"""pygpa_tpu — a TPU-native framework for Geometric Phase Analysis.
+"""pygpa_tpu — a JAX framework for Geometric Phase Analysis.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability set of
+A from-scratch JAX/XLA rebuild of the capability set of
 TAdeJong/pyGPA (reference mounted at /root/reference): spatial lock-in
 GPA, windowed-Fourier-ridge adaptive GPA, weighted phase unwrapping,
 displacement-field reconstruction, Lawler-Fujita undistortion, local
@@ -9,7 +9,7 @@ Kerelsky-style moire parameter fits, and drizzle unit-cell averaging.
 
 Everything on the compute path is jit-compiled XLA (complex FFT lock-in,
 lax.scan WFR sweeps, lax.while_loop CG unwrapping, closed-form batched
-2x2 linear algebra) and vmappable over image stacks; multi-chip scaling
+2x2 linear algebra) and vmappable over image stacks; multi-device scaling
 goes through jax.sharding meshes (see pygpa_tpu.parallel).
 
 Quick start (mirrors pyGPA's main entry points)::
@@ -23,15 +23,15 @@ Quick start (mirrors pyGPA's main entry points)::
 
 __version__ = "0.1.0"
 
-# NOTE on matmul precision: on TPU, an unannotated matmul runs the MXU
-# at bf16 (~4e-3 relative error) — enough to corrupt k-vector geometry
-# and coordinate transforms by whole pixels at image scale. EVERY
-# contraction in this package therefore passes its precision
-# explicitly (geometry at HIGHEST; the tuned kernels choose their own
-# bf16x3/bf16 modes deliberately); the global
+# NOTE on matmul precision: on a GPU an unannotated float32 matmul may
+# run in TF32 (~5e-4 relative error) — enough to corrupt k-vector
+# geometry and coordinate transforms by whole pixels at image scale.
+# EVERY contraction in this package therefore passes its precision
+# explicitly (geometry, resampling and the zoom sweep's DFT dots at
+# HIGHEST; see ops/wfr.py and solvers/unwrap.py); the global
 # jax_default_matmul_precision is intentionally left untouched so
 # importing this library never changes the numerics of the embedding
-# application. tests_tpu/test_tpu_hardware.py pins this on hardware.
+# application. chip_smoke.py checks the accuracy gates on the card.
 
 from . import core  # noqa: F401
 from . import lattices  # noqa: F401

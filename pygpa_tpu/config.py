@@ -22,62 +22,30 @@ class GPAConfig:
     # geometric_phase_analysis.py:117,241).
     unwrap_kmax: int = 100
     unwrap_kmax_reconstruct: int = 10
-    # coarsest-level CG iterations of the multigrid unwrap: 6 measured
+    # coarsest-level CG iterations of the multigrid unwrap: 6 is
     # gate-identical to 10 on the reference fixtures (the finer levels
-    # polish); keeps ~25% of the V-cycle's coarse-level transforms off
-    # the clock
+    # polish)
     unwrap_kmax_mg: int = 6
     # CG iterations at the coarse//2 mid level of the default multigrid
     # schedule. "auto" = skip the level on LARGE images (mid grid >=
-    # 1024 px: measured on-chip at 4096^2 the level costs 14.6 ms of
-    # the 51.4 ms unwrap while the V-branch finest level's coarse
-    # revisit absorbs the defect — bench gates move zero-disp
-    # 0.0010->0.0014 px, deformed 0.066->0.073 px, ~15% e2e win) but
-    # keep 1 iteration on small ones (at 500^2 skipping fails the
-    # noisy reference gate: 0.907 > 0.9 px). An int forces that many
-    # iterations at the mid level everywhere (0 = always skip).
+    # 1024 px, where the V-branch finest level's coarse revisit absorbs
+    # the defect) but keep 1 iteration on small ones (at 500^2
+    # skipping fails the noisy reference gate: 0.907 > 0.9 px, CPU
+    # float64). An int forces that many iterations at the mid level
+    # everywhere (0 = always skip).
     unwrap_mg_mid: object = "auto"
     # finest-level strategy of the multigrid unwrap schedule: 1 = one
-    # full-resolution DCT-preconditioned CG step (exact-path default),
-    # "v"/"vv" = smooth/coarse-correct/smooth V-branch rounds
-    # (transform-free at full resolution, ~2x faster finest level,
-    # slightly wider — but gate-green — error margins; see
-    # solvers/unwrap.py). Measured at 4096^2 on-chip: "v" 146.4 vs
-    # 1 at 134.8 Mpix/s; interior err 0.0011 vs 0.0007 px ("vv" is
-    # slower than 1 — two coarse CG solves cost more than the DCT).
+    # full-resolution DCT-preconditioned CG step, "v"/"vv" =
+    # smooth/coarse-correct/smooth V-branch rounds (transform-free at
+    # full resolution, slightly wider — but gate-green — error
+    # margins; see solvers/unwrap.py).
     unwrap_mg_final: object = "v"
     # CG iterations of the V-branch's coarse-grid correction solve
-    # (None = inherit kmax). 4 measured on-chip at 4096^2 (r5 A/B,
-    # ms / raw / dcfree / deformed): 49.6/.0016/.0013/.0717 vs the
-    # inherited 6 at 50.2/.0015/.0014/.0728 — slightly faster AND
-    # better on the two tightest ratchets (dc-free interior ripple,
-    # deformed); only the physically-meaningless unwrap DC moves.
-    # Small-image gates re-verified by the CPU suite (test_pipeline).
+    # (None = inherit kmax). Small-image gates verified by the CPU
+    # suite (test_pipeline).
     unwrap_mg_v_kmax: object = 4
     unwrap_kmax_iterate: int = 25
     unwrap_kmax_final: int = 200
-    # Zoom-window tail cut (-ln G at the window edge) for the
-    # PRODUCTION f32 pipeline sweeps (make_displacement_extractor):
-    # 10 -> edge G ~ 4.5e-5 (measured r3: winner phase <= 5e-7 rad vs
-    # exact-grade while the deep-dot window shrinks 256->192; 3-peak
-    # sweep 54 -> 43 ms). r5 on-chip A/B at 4096^2 (ms / raw / dcfree
-    # / deformed): 10 -> 49.6/.00159/.00130/.0717; 8 ->
-    # 49.5/.00172/.00132/.0720; 7 -> 49.6/.00118/.00091/.0721. The
-    # cut-vs-ripple relation is NON-monotonic (specific window index
-    # sets resonate differently with the lattice harmonics; gc=22
-    # measured .00129 raw) — 7 is the measured optimum and is
-    # speed-neutral (the padded lane width does not change), so it is
-    # the default; every gate (bench ratchets, run_all configs,
-    # tests_tpu pins) re-validated on chip at this value.
-    pipeline_gauss_cut: float = 7.0
-    # Fused sweep -> reconstruction-prologue emission: the grouped
-    # sweep kernel computes the wrapped phase diffs + per-pixel
-    # weighted lstsq in its epilogue and emits dudx/dudy/wnorm
-    # directly (5 planes instead of 6, and the XLA prologue's
-    # wrap/diff/lstsq work disappears). Only affects the fused TPU
-    # kernel route of make_displacement_extractor; the XLA fallback
-    # path is unchanged.
-    pipeline_fused_uv: bool = True
     # Graphene lattice constant in nm (geometric_phase_analysis.py:352-368).
     a_0: float = 0.246
     # Poisson ratio for heterostrain decompositions

@@ -1,9 +1,9 @@
 """Fourier-domain building blocks: Gaussian multipliers, FFT-based DCT,
 Moisan periodic-plus-smooth decomposition, FFT smoothing, Wiener filter.
 
-TPUs have fast batched complex FFTs but no native DCT; the DCT-II /
-inverse pair here uses the Makhoul length-N permutation + twiddle trick
-so a 2D DCT costs exactly one complex FFT per axis. All functions are
+XLA has fast batched complex FFTs (cuFFT on the GPU) but no native DCT;
+the DCT-II / inverse pair here uses the Makhoul length-N permutation +
+twiddle trick so a 2D DCT costs exactly one complex FFT per axis. All functions are
 jittable and dtype-preserving (float32 by default, float64 with x64).
 
 Reference behavior replaced:
@@ -16,7 +16,6 @@ Reference behavior replaced:
    (used at /root/reference/pyGPA/geometric_phase_analysis.py:901-903)
 """
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 
@@ -42,111 +41,12 @@ def fourier_gaussian_multiplier(shape, sigma, dtype=jnp.float32,
     return jnp.exp(-s2 * arg)
 
 
-# --- MXU (matmul) FFT --------------------------------------------------
-# XLA's TPU FFT runs on the VPU at a fraction of peak; a radix-split
-# Cooley-Tukey FFT expressed as two batched matmuls against small DFT
-# matrices runs on the systolic array instead (~5x for the DCT sizes
-# the CG unwrapper uses). Exact to f32/f64 rounding (HIGHEST precision).
-
-_MXU_FFT_RADIX = 64
-_MXU_FFT_MIN = 512  # below this the VPU FFT wins (dispatch/GEMM setup)
-
-# Matmul precision of the MXU FFT/DCT stages. HIGHEST is float32-exact
-# (6 bf16 MXU passes); HIGH (bf16x3, ~1e-7 relative) halves the cost of
-# the transform-bound CG preconditioner. The unwrap solver switches to
-# HIGH locally (solvers/unwrap.py); the public dct2n/idct2n default to
-# exact.
-_MXU_FFT_PRECISION = jax.lax.Precision.HIGHEST
-
-
-class mxu_fft_precision:
-    """Context manager scoping the MXU FFT/DCT matmul precision."""
-
-    def __init__(self, precision):
-        self.precision = precision
-
-    def __enter__(self):
-        global _MXU_FFT_PRECISION
-        self.saved = _MXU_FFT_PRECISION
-        _MXU_FFT_PRECISION = self.precision
-        return self
-
-    def __exit__(self, *exc):
-        global _MXU_FFT_PRECISION
-        _MXU_FFT_PRECISION = self.saved
-        return False
-
-
-def _mxu_fft_supported(n):
-    return n >= _MXU_FFT_MIN and n % _MXU_FFT_RADIX == 0
-
-
-def _mxu_fft_factors(n, dtype, inverse):
-    n1 = _MXU_FFT_RADIX
-    n2 = n // n1
-    sgn = 2.0 if inverse else -2.0
-    a1 = sgn * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1
-    a2 = sgn * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2
-    tw = sgn * np.pi * np.outer(np.arange(n1), np.arange(n2)) / n
-    f = np.float64 if dtype == jnp.float64 else np.float32
-    return (np.cos(a1).astype(f), np.sin(a1).astype(f),
-            np.cos(a2).astype(f), np.sin(a2).astype(f),
-            np.cos(tw).astype(f), np.sin(tw).astype(f))
-
-
-def _mxu_fft_real(v):
-    """Forward FFT along the last axis of a real array via two MXU
-    matmuls (Cooley-Tukey n = 64 * n/64). Returns (Re F, Im F)."""
-    n = v.shape[-1]
-    dt = v.dtype
-    W1c, W1s, W2c, W2s, Twc, Tws = _mxu_fft_factors(n, dt, False)
-    hi = _MXU_FFT_PRECISION
-    n1 = _MXU_FFT_RADIX
-    xr = v.reshape(v.shape[:-1] + (n1, n // n1))           # (j1, j2)
-    Ar = jnp.einsum("kj,...jm->...km", W1c, xr, precision=hi)
-    Ai = jnp.einsum("kj,...jm->...km", W1s, xr, precision=hi)
-    Br = Ar * Twc - Ai * Tws
-    Bi = Ar * Tws + Ai * Twc
-    Cr = (jnp.einsum("...kj,jm->...km", Br, W2c, precision=hi)
-          - jnp.einsum("...kj,jm->...km", Bi, W2s, precision=hi))
-    Ci = (jnp.einsum("...kj,jm->...km", Br, W2s, precision=hi)
-          + jnp.einsum("...kj,jm->...km", Bi, W2c, precision=hi))
-    # output index k = k1 + k2*n1 -> transpose (k2, k1) and flatten
-    out_shape = v.shape
-    Fr = jnp.swapaxes(Cr, -1, -2).reshape(out_shape)
-    Fi = jnp.swapaxes(Ci, -1, -2).reshape(out_shape)
-    return Fr, Fi
-
-
-def _mxu_ifft_real_out(Fr, Fi):
-    """Real part of the inverse FFT along the last axis of (Fr + i Fi),
-    via MXU matmuls (the final stage only computes the real part)."""
-    n = Fr.shape[-1]
-    dt = Fr.dtype
-    W1c, W1s, W2c, W2s, Twc, Tws = _mxu_fft_factors(n, dt, True)
-    hi = _MXU_FFT_PRECISION
-    n1 = _MXU_FFT_RADIX
-    xr = Fr.reshape(Fr.shape[:-1] + (n1, n // n1))
-    xi = Fi.reshape(Fi.shape[:-1] + (n1, n // n1))
-    Ar = (jnp.einsum("kj,...jm->...km", W1c, xr, precision=hi)
-          - jnp.einsum("kj,...jm->...km", W1s, xi, precision=hi))
-    Ai = (jnp.einsum("kj,...jm->...km", W1s, xr, precision=hi)
-          + jnp.einsum("kj,...jm->...km", W1c, xi, precision=hi))
-    Br = Ar * Twc - Ai * Tws
-    Bi = Ar * Tws + Ai * Twc
-    vr = (jnp.einsum("...kj,jm->...km", Br, W2c, precision=hi)
-          - jnp.einsum("...kj,jm->...km", Bi, W2s, precision=hi))
-    return jnp.swapaxes(vr, -1, -2).reshape(Fr.shape) / n
-
-
 def dct2_1d(x):
     """Unnormalized DCT-II along the last axis (== scipy.fft.dct, norm=None).
 
     Makhoul's single-FFT algorithm: permute to v = [x0, x2, ..., x3, x1],
     FFT, twiddle by exp(-i pi k / 2n), keep 2*Re. For even lengths the
-    even/odd split is a reshape (one layout pass) instead of two strided
-    gathers — strided memory ops are slow on TPU. Radix-64-compatible
-    lengths use the MXU matmul FFT.
+    even/odd split is a reshape instead of two strided gathers.
     """
     n = x.shape[-1]
     if n % 2 == 0:
@@ -157,11 +57,6 @@ def dct2_1d(x):
         v = jnp.concatenate([x[..., ::2], x[..., 1::2][..., ::-1]],
                             axis=-1)
     k = jnp.arange(n, dtype=_real_dtype(x.dtype))
-    if _mxu_fft_supported(n):
-        Fr, Fi = _mxu_fft_real(v)
-        Wc = jnp.cos(jnp.pi * k / (2 * n))
-        Ws = jnp.sin(jnp.pi * k / (2 * n))
-        return 2 * (Fr * Wc + Fi * Ws)   # 2 Re(F * exp(-i pi k/2n))
     F = jnp.fft.fft(v)
     W = jnp.exp(-1j * jnp.pi * k / (2 * n)).astype(F.dtype)
     return 2 * (F * W).real
@@ -173,22 +68,13 @@ def idct2_1d(y):
     k = jnp.arange(n, dtype=_real_dtype(y.dtype))
     # G_k = (y_k - i y_{n-k}) / 2 with y_n := 0
     ynk = jnp.concatenate([jnp.zeros_like(y[..., :1]), y[..., :0:-1]], axis=-1)
-    if _mxu_fft_supported(n):
-        Wc = jnp.cos(jnp.pi * k / (2 * n))
-        Ws = jnp.sin(jnp.pi * k / (2 * n))
-        Fr = (y * Wc + ynk * Ws) * 0.5
-        Fi = (y * Ws - ynk * Wc) * 0.5
-        v = _mxu_ifft_real_out(Fr, Fi)
-        half = (n + 1) // 2
-        return jnp.stack([v[..., :half], v[..., half:][..., ::-1]],
-                         axis=-1).reshape(y.shape)
     G = (y - 1j * ynk) * 0.5
     F = G * jnp.exp(1j * jnp.pi * k / (2 * n)).astype(G.dtype)
     v = jnp.fft.ifft(F).real
     half = (n + 1) // 2
     if n % 2 == 0:
-        # interleave via stack+reshape (one layout pass, no strided
-        # scatter): x[2j] = v[j], x[2j+1] = v[n-1-j]
+        # interleave via stack+reshape (no strided scatter):
+        # x[2j] = v[j], x[2j+1] = v[n-1-j]
         x = jnp.stack([v[..., :half], v[..., half:][..., ::-1]],
                       axis=-1).reshape(y.shape)
     else:
@@ -198,126 +84,15 @@ def idct2_1d(y):
     return x
 
 
-# --- axis(-2) DCT without transposes ------------------------------------
-# Full-array (N, M) transposes are expensive relayouts on TPU; the MXU
-# contraction can run along the sublane axis directly, keeping the lane
-# (minor) dimension contiguous throughout.
-
-def _perm_axis2(x):
-    """Makhoul even/odd permutation along axis -2 (even length)."""
-    n = x.shape[-2]
-    pairs = x.reshape(x.shape[:-2] + (n // 2, 2, x.shape[-1]))
-    return jnp.concatenate([pairs[..., 0, :],
-                            jnp.flip(pairs[..., 1, :], axis=-2)], axis=-2)
-
-
-def _dct2_axis2_mxu(x):
-    """DCT-II along axis -2 via MXU matmuls, no full transposes."""
-    n = x.shape[-2]
-    dt = x.dtype
-    W1c, W1s, W2c, W2s, Twc, Tws = _mxu_fft_factors(n, dt, False)
-    hi = _MXU_FFT_PRECISION
-    n1 = _MXU_FFT_RADIX
-    v = _perm_axis2(x)
-    xr = v.reshape(v.shape[:-2] + (n1, n // n1, v.shape[-1]))  # j1 j2 m
-    Ar = jnp.einsum("kj,...jnm->...knm", W1c, xr, precision=hi)
-    Ai = jnp.einsum("kj,...jnm->...knm", W1s, xr, precision=hi)
-    Tc = Twc[:, :, None]
-    Ts = Tws[:, :, None]
-    Br = Ar * Tc - Ai * Ts
-    Bi = Ar * Ts + Ai * Tc
-    Cr = (jnp.einsum("...kjm,jl->...klm", Br, W2c, precision=hi)
-          - jnp.einsum("...kjm,jl->...klm", Bi, W2s, precision=hi))
-    Ci = (jnp.einsum("...kjm,jl->...klm", Br, W2s, precision=hi)
-          + jnp.einsum("...kjm,jl->...klm", Bi, W2c, precision=hi))
-    # output index k = k1 + k2*n1: swap the two small factor axes
-    Fr = jnp.swapaxes(Cr, -3, -2).reshape(x.shape)
-    Fi = jnp.swapaxes(Ci, -3, -2).reshape(x.shape)
-    k = jnp.arange(n, dtype=_real_dtype(dt))[:, None]
-    Wc = jnp.cos(jnp.pi * k / (2 * n))
-    Ws = jnp.sin(jnp.pi * k / (2 * n))
-    return 2 * (Fr * Wc + Fi * Ws)
-
-
-def _idct2_axis2_mxu(y):
-    """Inverse DCT-II along axis -2 via MXU matmuls."""
-    n = y.shape[-2]
-    dt = y.dtype
-    W1c, W1s, W2c, W2s, Twc, Tws = _mxu_fft_factors(n, dt, True)
-    hi = _MXU_FFT_PRECISION
-    n1 = _MXU_FFT_RADIX
-    k = jnp.arange(n, dtype=_real_dtype(dt))[:, None]
-    ynk = jnp.concatenate([jnp.zeros_like(y[..., :1, :]),
-                           jnp.flip(y[..., 1:, :], axis=-2)], axis=-2)
-    Wc = jnp.cos(jnp.pi * k / (2 * n))
-    Ws = jnp.sin(jnp.pi * k / (2 * n))
-    Fr = (y * Wc + ynk * Ws) * 0.5
-    Fi = (y * Ws - ynk * Wc) * 0.5
-    xr = Fr.reshape(Fr.shape[:-2] + (n1, n // n1, Fr.shape[-1]))
-    xi = Fi.reshape(Fi.shape[:-2] + (n1, n // n1, Fi.shape[-1]))
-    Ar = (jnp.einsum("kj,...jnm->...knm", W1c, xr, precision=hi)
-          - jnp.einsum("kj,...jnm->...knm", W1s, xi, precision=hi))
-    Ai = (jnp.einsum("kj,...jnm->...knm", W1s, xr, precision=hi)
-          + jnp.einsum("kj,...jnm->...knm", W1c, xi, precision=hi))
-    Tc = Twc[:, :, None]
-    Ts = Tws[:, :, None]
-    Br = Ar * Tc - Ai * Ts
-    Bi = Ar * Ts + Ai * Tc
-    vr = (jnp.einsum("...kjm,jl->...klm", Br, W2c, precision=hi)
-          - jnp.einsum("...kjm,jl->...klm", Bi, W2s, precision=hi))
-    v = jnp.swapaxes(vr, -3, -2).reshape(y.shape) / n
-    half = (n + 1) // 2
-    return jnp.stack([v[..., :half, :],
-                      jnp.flip(v[..., half:, :], axis=-2)],
-                     axis=-2).reshape(y.shape[:-2] + (n, y.shape[-1]))
-
-
-# Single-pass Pallas DCT (ops/pallas_dct2) on/off switch.
-_PALLAS_DCT2 = True
-
-
-def _pallas_dct_ok(n):
-    """Single-pass Pallas DCT (ops/pallas_dct2): direct two-stage MXU
-    factorization of the DCT matrix, one HBM read + write per
-    transform — no permutation, twiddle or digit-transpose passes.
-    Measured in the vmapped CG while_loop on v5e: wins at 4096
-    (27 vs 37 ms/iteration) but loses to the fused XLA chain below
-    (per-launch overhead dominates: 4.9 vs 1.1 ms at 1024), so the
-    production gate is size-dependent."""
-    from ..ops import pallas_dct2
-    return (_PALLAS_DCT2 and jax.default_backend() == "tpu"
-            and n >= 4096 and pallas_dct2.supported(n))
-
-
 def dct2n(x):
-    """2D DCT-II over the last two axes (== scipy.fft.dctn, norm=None).
-    On TPU, power-of-two axes from 1024 up run as single-pass Pallas
-    kernels (ops/pallas_dct2) at the scoped MXU precision
-    (_MXU_FFT_PRECISION); other sizes use the Makhoul + radix-matmul
-    XLA path (axis -2 contracts along sublanes — no transposes)."""
-    from ..ops import pallas_dct2
-    if _pallas_dct_ok(x.shape[-1]):
-        x = pallas_dct2.dct_lane(x, precision=_MXU_FFT_PRECISION)
-    else:
-        x = dct2_1d(x)
-    if _pallas_dct_ok(x.shape[-2]):
-        return pallas_dct2.dct_sub(x, precision=_MXU_FFT_PRECISION)
-    if _mxu_fft_supported(x.shape[-2]) and x.shape[-2] % 2 == 0:
-        return _dct2_axis2_mxu(x)
+    """2D DCT-II over the last two axes (== scipy.fft.dctn, norm=None)."""
+    x = dct2_1d(x)
     return jnp.swapaxes(dct2_1d(jnp.swapaxes(x, -1, -2)), -1, -2)
 
 
 def idct2n(x):
     """2D inverse DCT-II over the last two axes (== scipy.fft.idctn)."""
-    from ..ops import pallas_dct2
-    if _pallas_dct_ok(x.shape[-2]):
-        x = pallas_dct2.idct_sub(x, precision=_MXU_FFT_PRECISION)
-    elif _mxu_fft_supported(x.shape[-2]) and x.shape[-2] % 2 == 0:
-        x = _idct2_axis2_mxu(x)
-    else:
-        x = jnp.swapaxes(idct2_1d(jnp.swapaxes(x, -1, -2)), -1, -2)
-    if _pallas_dct_ok(x.shape[-1]):
-        return pallas_dct2.idct_lane(x, precision=_MXU_FFT_PRECISION)
+    x = jnp.swapaxes(idct2_1d(jnp.swapaxes(x, -1, -2)), -1, -2)
     return idct2_1d(x)
 
 

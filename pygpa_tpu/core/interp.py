@@ -1,4 +1,4 @@
-"""Image resampling (map_coordinates) on TPU.
+"""Image resampling (map_coordinates).
 
 scipy.ndimage.map_coordinates(order=3) underpins the reference's
 distortion inversion, undistortion, and unit-cell expansion
@@ -11,7 +11,7 @@ mode-extended pad + short FIR, since the exact IIR inverse decays as
 B-spline basis sampling from 16 fused gathers; verified to 1e-11
 against scipy.ndimage per boundary mode. A prefilter-free Catmull-Rom
 variant (cubic='catmull') remains for callers that want one pass.
-Everything maps to plain XLA convs/gathers on TPU (no host
+Everything maps to plain XLA convolutions and gathers (no host
 round-trip, vmappable, differentiable).
 
 Modes: 'nearest' (clamp) and 'constant' (cval outside, NaN supported).
@@ -22,25 +22,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.scipy import ndimage as jndi
-
-# Route order-1 2-D warps through the Pallas gather kernel on TPU
-# (ops/pallas_warp.py): ~10x faster than the XLA gather lowering.
-# Requires locally smooth coordinate fields (per-(8,128)-tile
-# variation < 56 rows / 127 cols beyond the tile extent, i.e.
-# |grad coords - I| <~ 0.4) — true of every displacement-field warp in
-# this framework. Set False to force the exact-for-any-coords XLA path.
-_PALLAS_WARP = True
-
-
-def _use_pallas_warp(image, coordinates, order, mode):
-    return (_PALLAS_WARP
-            and order in (1, 3)
-            and jax.default_backend() == "tpu"
-            and image.ndim == 2
-            and coordinates.shape[0] == 2
-            and coordinates[0].ndim in (1, 2)
-            and mode in ("nearest", "constant"))
-
 
 def _cubic_weights(t):
     """Catmull-Rom weights for taps at offsets (-1, 0, 1, 2)."""
@@ -72,7 +53,7 @@ def _bspline_weights(t):
 # convolution with h[d] = -6 z1 / (1 - z1^2) * z1^|d|. |z1| = 0.268,
 # so truncating at radius 27 leaves < 1e-15 relative residual — the
 # prefilter becomes a mode-extended pad + short FIR convolution,
-# exact for EVERY boundary mode and TPU-friendly (no sequential IIR).
+# exact for EVERY boundary mode and parallel (no sequential IIR).
 _BSPLINE_POLE = 3.0 ** 0.5 - 2.0
 _BSPLINE_RADIUS = 27
 
@@ -111,25 +92,6 @@ def _pad_axis(x, r, axis, mode):
     return x
 
 
-def _bspline_band_matrix(n, dtype):
-    """(n + 2R, n) banded matrix applying the truncated inverse filter
-    to a padded axis: out = padded @ B. Built IN-GRAPH from iotas —
-    multi-MB numpy literals stall XLA constant pipelining — and as a
-    dense matmul because TPU lowers small 1-D convolutions far off the
-    MXU path (measured ~300 ms/axis at 2048^2 vs <1 ms here)."""
-    r = _BSPLINE_RADIUS
-    z = _BSPLINE_POLE                       # negative: sign alternates
-    amp = -6.0 * z / (1.0 - z * z)
-    jj = jax.lax.broadcasted_iota(jnp.int32, (n + 2 * r, n), 0)
-    ii = jax.lax.broadcasted_iota(jnp.int32, (n + 2 * r, n), 1)
-    d = jj - ii - r
-    ad = jnp.abs(d).astype(dtype)
-    mag = jnp.exp(ad * float(np.log(-z)))
-    sign = 1.0 - 2.0 * (jnp.abs(d) % 2).astype(dtype)
-    band = (jnp.abs(d) <= r).astype(dtype)
-    return (amp * sign * mag) * band
-
-
 # 'nearest'-mode sampling margin reproducing scipy's npad=12 pre-pad
 # (_interpolation.py:212-226): 12 off-image px of extended-spline
 # evaluation + 1 so the outer B-spline tap at the clamp stays inside
@@ -157,37 +119,20 @@ def spline_filter(image, mode="mirror", axes=None, margin=0):
     if axes is None:
         axes = tuple(range(image.ndim))
     r = _BSPLINE_RADIUS
-    on_tpu = jax.default_backend() == "tpu"
-    h = None if on_tpu else _bspline_fir(image.dtype)
+    h = _bspline_fir(image.dtype)
     nd = image.ndim
     for ax in axes:
         ax = ax % nd
         x = _pad_axis(image, r + int(margin), ax, mode)
-        if on_tpu:
-            # dense banded matmul straight on the axis (no moveaxis —
-            # relayout transposes cost more than the matmul itself)
-            B = _bspline_band_matrix(x.shape[ax] - 2 * r, image.dtype)
-            if ax == nd - 1:
-                image = jnp.einsum("...k,kn->...n", x, B,
-                                   precision=jax.lax.Precision.HIGHEST)
-            elif ax == nd - 2:
-                image = jnp.einsum("...km,kn->...nm", x, B,
-                                   precision=jax.lax.Precision.HIGHEST)
-            else:
-                x = jnp.moveaxis(x, ax, -1)
-                out = jnp.matmul(x, B,
-                                 precision=jax.lax.Precision.HIGHEST)
-                image = jnp.moveaxis(out, -1, ax)
-        else:
-            x = jnp.moveaxis(x, ax, -1)
-            lead = x.shape[:-1]
-            xf = x.reshape(1, 1, int(np.prod(lead)) if lead else 1,
-                           x.shape[-1])
-            out = jax.lax.conv_general_dilated(
-                xf, h.reshape(1, 1, 1, h.shape[0]),
-                window_strides=(1, 1), padding="VALID",
-                precision=jax.lax.Precision.HIGHEST)
-            image = jnp.moveaxis(out.reshape(*lead, -1), -1, ax)
+        x = jnp.moveaxis(x, ax, -1)
+        lead = x.shape[:-1]
+        xf = x.reshape(1, 1, int(np.prod(lead)) if lead else 1,
+                       x.shape[-1])
+        out = jax.lax.conv_general_dilated(
+            xf, h.reshape(1, 1, 1, h.shape[0]),
+            window_strides=(1, 1), padding="VALID",
+            precision=jax.lax.Precision.HIGHEST)
+        image = jnp.moveaxis(out.reshape(*lead, -1), -1, ax)
     return image
 
 
@@ -273,10 +218,6 @@ def map_coordinates(image, coordinates, order=3, mode="nearest", cval=0.0,
     image = jnp.asarray(image)
     coordinates = jnp.asarray(coordinates)
     if order <= 1:
-        if _use_pallas_warp(image, coordinates, order, mode):
-            from ..ops.pallas_warp import warp_bilinear
-            return warp_bilinear(image, coordinates[0], coordinates[1],
-                                 mode=mode, cval=cval)
         return jndi.map_coordinates(image, list(coordinates), order=order,
                                     mode=mode, cval=cval)
     if mode not in ("nearest", "constant"):
@@ -307,9 +248,5 @@ def map_coordinates(image, coordinates, order=3, mode="nearest", cval=0.0,
             + jnp.asarray(mg, dt),
             jnp.clip(coordinates[1], -ext, m_l - 1 + ext)
             + jnp.asarray(mg, dt)])
-    if _use_pallas_warp(image, coordinates, order, mode):
-        from ..ops.pallas_warp import warp_cubic
-        return warp_cubic(image, coordinates[0], coordinates[1],
-                          mode=mode, cval=cval, cubic=cubic)
     return _map_coordinates_cubic(image, coordinates, cval, mode,
                                   cubic=cubic)

@@ -1,4 +1,4 @@
-"""Mathematical utilities (TPU-native counterpart of pyGPA.mathtools).
+"""Mathematical utilities (JAX counterpart of pyGPA.mathtools).
 
 All array functions are pure jnp, jittable, and dtype-preserving.
 Host-side helpers that feed tiny k-vector lists (standardize_ks,

@@ -1,7 +1,7 @@
 """pyGPA module-path compatibility: `import
 pygpa_tpu.geometric_phase_analysis as GPA` exposes the exact function
 surface of /root/reference/pyGPA/geometric_phase_analysis.py, backed by
-the TPU-native implementations."""
+the JAX implementations."""
 from .gpa.api import (  # noqa: F401
     GPA, optGPA, vecGPA, wfr, wfr2, wfr3, wfr4, optwfr2,
     wfr2_only_lockin, wfr2_only_lockin_vec, wfr2_grad, wfr2_grad_opt,

@@ -60,7 +60,7 @@ def wfr2(image, sigma, kx, ky, kw, kstep):
 
 
 # The reference's optwfr2 computes identical values to wfr2 with fewer
-# ops; on TPU there is a single optimal kernel.
+# ops; here both names are the same single-FFT sweep.
 optwfr2 = wfr2
 
 

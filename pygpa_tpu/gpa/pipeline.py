@@ -17,12 +17,9 @@ import jax.numpy as jnp
 from ..config import DEFAULTS
 from ..core import interp
 from ..core.fourier import fourier_gaussian_multiplier, wiener_deconvolve
-from ..ops.wfr import (wfr_sweep, wfr_sweep_phase_weight,
-                       wfr_sweep_phase_weight_multi,
-                       wfr_sweep_uv_multi)
+from ..ops.wfr import wfr_sweep, wfr_sweep_phase_weight_multi
 from .reconstruct import (reconstruct_u_inv_from_phases,
-                          reconstruct_u_inv_from_demod,
-                          reconstruct_u_inv_from_uv)
+                          reconstruct_u_inv_from_demod)
 
 
 def invert_u(us, iters=35, edge=0, mode="nearest", order=3):
@@ -62,10 +59,9 @@ def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
     (geometric_phase_analysis.py:262-300). Output is
     (2, N+2*edge, M+2*edge).
 
-    TPU note: per-pixel gathers (the resampling inside the fixed-point
-    loop) are the slowest primitive on TPU. With coarse > 1 the
-    Picard iteration runs on a `coarse`-x downsampled grid (u is
-    smooth — it comes out of a sigma-wide lock-in window) and the
+    With coarse > 1 the Picard iteration runs on a `coarse`-x
+    downsampled grid (u is smooth — it comes out of a sigma-wide
+    lock-in window) and the
     full-resolution polish is a FROZEN-JACOBIAN NEWTON iteration:
     J = grad(us) is evaluated once on the coarse grid at r + u_coarse,
     upsampled gather-free, and each refine step solves the per-pixel
@@ -97,8 +93,7 @@ def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
         def upsample(a, scale):
             L = _resize_right(a.shape[-2], n, a.dtype).T
             R = _resize_right(a.shape[-1], m, a.dtype)
-            return _sep2(a * scale, L, R,
-                         precision=jax.lax.Precision.HIGHEST)
+            return _sep2(a * scale, L, R)
 
         u0 = upsample(uc, jnp.asarray(c, us.dtype))
         # frozen Jacobian on the coarse grid at r + u_coarse (J is as
@@ -170,8 +165,9 @@ def undistort_image(deformed, u, order=3, coarse=1, invert_iters=35):
     """Lawler-Fujita undistortion: invert -u, then resample the
     deformed image at r + u_inv (geometric_phase_analysis.py:935-974).
     `coarse` > 1 runs the displacement inversion on a downsampled grid
-    (see invert_u_overlap) — a large TPU speedup for smooth u at
-    unchanged reconstruction accuracy (verified in tests)."""
+    (see invert_u_overlap) — 4x fewer full-resolution warps for
+    smooth u at unchanged reconstruction accuracy (verified in
+    tests)."""
     deformed = jnp.asarray(deformed)
     u = jnp.asarray(u)
     u_inv = invert_u_overlap(-u, iters=invert_iters, coarse=coarse)
@@ -183,9 +179,10 @@ def undistort_image(deformed, u, order=3, coarse=1, invert_iters=35):
 
 
 def _next_fast_fft_size(n):
-    """Smallest 5-smooth integer >= n. XLA's FFT runs Bluestein for
-    sizes with large prime factors — 4096 + 4*dr = 4504 = 2^3 * 563
-    measured ~4x slower than the nearby 4608 = 2^9 * 3^2."""
+    """Smallest 5-smooth integer >= n. FFT libraries fall back to
+    Bluestein's algorithm for sizes with large prime factors (e.g.
+    4096 + 4*dr = 4504 = 2^3 * 563), several times slower than a
+    nearby 5-smooth size (4608 = 2^9 * 3^2)."""
     best = 1
     while best < n:
         best *= 2
@@ -211,7 +208,7 @@ def gaussian_deconvolve(data, sigma, dr=DEFAULTS.wiener_pad,
     (boundary-effect-only deviation from the reference's exact 2*dr
     pad, inside the same reflect-pad approximation and covered by the
     reference-tolerance pipeline tests; keeps XLA off its Bluestein
-    path — ~4x at 4096^2)."""
+    path)."""
     data = jnp.asarray(data)
     n, m = data.shape[-2], data.shape[-1]
     pn = _next_fast_fft_size(n + 4 * dr)
@@ -229,13 +226,37 @@ def gaussian_deconvolve(data, sigma, dr=DEFAULTS.wiener_pad,
     return out[..., 2 * dr: 2 * dr + n, 2 * dr: 2 * dr + m]
 
 
+def pipeline_candidate_grids(kvecs, sigma=None, kwscale=DEFAULTS.kw_scale,
+                             ksteps=DEFAULTS.ksteps):
+    """(sigma, per-peak (P, 2) candidate grids) of the production
+    pipelines: sigma = ceil(1/min|k|) unless given, kw = mean|k|/kwscale,
+    2*ksteps points per axis at kstep = kw/ksteps from pk - kw
+    (geometric_phase_analysis.py:915-918). np.arange(pk-kw, pk+kw,
+    kstep) has exactly 2*ksteps elements in exact arithmetic, but fp
+    rounding of the endpoint can spill one extra sample for SOME
+    peaks; the fixed count keeps every peak's sweep the same shape and
+    the single-device and sharded pipelines on the same candidates."""
+    kvecs = np.asarray(kvecs, np.float64)
+    knorms = np.linalg.norm(kvecs, axis=1)
+    if not np.all(knorms > 0):
+        raise ValueError("all k-vectors must be nonzero")
+    kw = knorms.mean() / kwscale
+    sig = sigma if sigma is not None else int(np.ceil(1 / knorms.min()))
+    steps = kw / ksteps * np.arange(2 * ksteps)
+    wlists = []
+    for pk in kvecs:
+        wx, wy = np.meshgrid(pk[0] - kw + steps, pk[1] - kw + steps,
+                             indexing="ij")
+        wlists.append(np.stack([wx.ravel(), wy.ravel()], -1))
+    return sig, wlists
+
+
 def make_displacement_extractor(shape, kvecs, sigma=None,
                                 kwscale=DEFAULTS.kw_scale,
                                 ksteps=DEFAULTS.ksteps,
                                 deconvolve=False, chunk=8,
                                 unwrap_kmax=DEFAULTS.unwrap_kmax_reconstruct,
                                 unwrap_coarse=None,
-                                gauss_cut=None,
                                 dtype=jnp.float32):
     """Build a single fully-jitted displacement-extraction program for
     a fixed image shape and k-vector set: 3 WFR sweeps on one shared
@@ -244,67 +265,23 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
     the production/benchmark entry point; extract_displacement_field
     is the flexible eager-friendly API."""
     kvecs_h = np.asarray(kvecs, np.float64)
-    knorms = np.linalg.norm(kvecs_h, axis=1)
-    if not np.all(knorms > 0):
-        raise ValueError("all k-vectors must be nonzero")
-    kw = knorms.mean() / kwscale
-    sig = sigma if sigma is not None else int(np.ceil(1 / knorms.min()))
-    kstep = kw / ksteps
-    wlists = []
-    # fixed 2*ksteps points per axis: np.arange(pk-kw, pk+kw, kstep)
-    # has exactly ceil(2*kw/kstep) = 2*ksteps elements in exact
-    # arithmetic, but fp rounding of the endpoint can spill one extra
-    # sample for SOME peaks, leaving the Bragg peaks with unequal
-    # candidate counts — which silently disqualifies the grouped
-    # one-launch sweep kernel (it needs a uniform P)
-    steps = kstep * np.arange(2 * ksteps)
-    for pk in kvecs_h:
-        wx, wy = np.meshgrid(pk[0] - kw + steps, pk[1] - kw + steps,
-                             indexing="ij")
-        wlists.append(np.stack([wx.ravel(), wy.ravel()], -1))
+    sig, wlists = pipeline_candidate_grids(kvecs_h, sigma, kwscale, ksteps)
     wlists = [jnp.asarray(w, dtype) for w in wlists]
     kv = jnp.asarray(kvecs_h, dtype)
     dr = 2 * sig
-    # production sweeps trade the exact-grade zoom-window tail (22,
-    # below f32 resolution) for DEFAULTS.pipeline_gauss_cut (edge
-    # G ~ 4.5e-5): <= 5e-7 rad winner-phase change measured on-chip,
-    # ~20% off the sweep's deep-dot window
-    gc = (DEFAULTS.pipeline_gauss_cut if gauss_cut is None
-          else float(gauss_cut))
-
     wlists_h = [np.asarray(w) for w in wlists]
 
     @jax.jit
     def run(image):
         image = image.astype(dtype)
         img0 = image - image.mean()
-        uv = None
-        if DEFAULTS.pipeline_fused_uv:
-            with jax.named_scope("gpa.wfr_sweeps_uv"):
-                # fully-fused route: the grouped kernel emits the
-                # reconstruction prologue (dudx/dudy/wnorm) straight
-                # from its epilogue — the phase/weight planes never
-                # reach HBM (None when the kernel path is unavailable)
-                uv = wfr_sweep_uv_multi(img0, wlists_h, sig, dr,
-                                        kvecs_h, gauss_cut=gc)
-        if uv is not None:
-            with jax.named_scope("gpa.reconstruct"):
-                u = reconstruct_u_inv_from_uv(
-                    *uv, kmax=unwrap_kmax,
-                    unwrap_coarse=unwrap_coarse)
-        else:
-            with jax.named_scope("gpa.wfr_sweeps"):
-                # all Bragg peaks in one grouped kernel launch on the
-                # fused TPU path (its tiny spectrum windows come from
-                # direct DFT matmuls — no full-size fft2 at all);
-                # per-peak sweeps elsewhere compute the fft2 lazily
-                phases_demod, weights = wfr_sweep_phase_weight_multi(
-                    img0, wlists_h, sig, dr, chunk=chunk,
-                    gauss_cut=gc)
-            with jax.named_scope("gpa.reconstruct"):
-                u = reconstruct_u_inv_from_demod(
-                    kv, phases_demod, weights, kmax=unwrap_kmax,
-                    unwrap_coarse=unwrap_coarse)
+        with jax.named_scope("gpa.wfr_sweeps"):
+            phases_demod, weights = wfr_sweep_phase_weight_multi(
+                img0, wlists_h, sig, dr, chunk=chunk)
+        with jax.named_scope("gpa.reconstruct"):
+            u = reconstruct_u_inv_from_demod(
+                kv, phases_demod, weights, kmax=unwrap_kmax,
+                unwrap_coarse=unwrap_coarse)
         if deconvolve:
             with jax.named_scope("gpa.deconvolve"):
                 u = gaussian_deconvolve(u, sig, dr)

@@ -115,16 +115,8 @@ def reconstruct_u_inv_from_demod(kvecs, phases_demod, weights, kmax=10,
     dudx = weighted_lstsq_stack(dbdx, K, weights[:, :, : dbdx.shape[2]])
     dudy = weighted_lstsq_stack(dbdy, K, weights[:, : dbdy.shape[1], :])
     wnorm = jnp.linalg.norm(weights, axis=0)
-    return _integrate_uv(dudx, dudy, wnorm, kmax=kmax,
-                         unwrap_coarse=unwrap_coarse,
-                         refine_iters=refine_iters)
-
-
-def _integrate_uv(dudx, dudy, wnorm, kmax=10, unwrap_coarse=None,
-                  refine_iters=3):
-    """Integrate the per-pixel displacement gradients (the tail of
-    reconstruct_u_inv_from_demod): two vmapped weighted-CG unwraps
-    over the component axis (geometric_phase_analysis.py:239-242)."""
+    # two vmapped weighted unwraps over the component axis
+    # (geometric_phase_analysis.py:239-242)
     if unwrap_coarse:
         kmg = min(int(kmax), DEFAULTS.unwrap_kmax_mg)
         unwrap = jax.vmap(lambda dx, dy: phase_unwrap_prediff_mg(
@@ -134,21 +126,6 @@ def _integrate_uv(dudx, dudy, wnorm, kmax=10, unwrap_coarse=None,
         unwrap = jax.vmap(lambda dx, dy: phase_unwrap_prediff(
             dx, dy, wnorm, kmax=kmax))
     return unwrap(dudx, dudy)
-
-
-def reconstruct_u_inv_from_uv(dudx_s, dudy_s, wnorm, kmax=10,
-                              unwrap_coarse=None, refine_iters=3):
-    """Reconstruction from kernel-emitted SHIFTED displacement-gradient
-    planes (ops.pallas_sweep fused_zoom_sweep_grouped uv_ks path):
-    dudx_s/dudy_s are (2, n, m) with position j holding the diff
-    ENDING at j — column 0 / row 0 are carry garbage and dropped here.
-    Mathematically identical to reconstruct_u_inv_from_demod on the
-    same sweep's phases/weights (geometric_phase_analysis.py:196-245);
-    the wrapped diffs and per-pixel weighted lstsq already happened
-    inside the sweep launch."""
-    return _integrate_uv(dudx_s[:, :, 1:], dudy_s[:, 1:, :], wnorm,
-                         kmax=kmax, unwrap_coarse=unwrap_coarse,
-                         refine_iters=refine_iters)
 
 
 def iterate_GPA(image, kvecs, sigma, edge=5, iters=3,

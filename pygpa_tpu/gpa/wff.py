@@ -4,7 +4,7 @@ Reference behavior: /root/reference/pyGPA/geometric_phase_analysis.py:
 551-580 — convolve with a bank of Gabor wavelets over an (wx, wy)
 frequency grid, hard-threshold the coefficients, accumulate the
 re-convolutions. The reference runs real-space ndi.convolve per
-wavelet; on TPU each wavelet pass is two Fourier-domain multiplies on
+wavelet; here each wavelet pass is two Fourier-domain multiplies on
 a shared image spectrum, and the whole (wx, wy) bank is a lax.scan
 (boundary handling is circular rather than scipy's reflect; interior
 values agree — verified against scipy in tests).

@@ -1,7 +1,7 @@
 """Checkpointing of pipeline intermediates.
 
 The reference keeps everything in memory (SURVEY.md §5:
-checkpoint/resume "none"). For large mosaic campaigns the TPU
+checkpoint/resume "none"). For large mosaic campaigns this
 framework can persist the per-image intermediates (phases, weights,
 u, k-vectors) and resume property extraction without re-running the
 sweeps. Plain .npz by default; orbax (if installed) for sharded

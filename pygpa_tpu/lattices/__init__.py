@@ -3,7 +3,7 @@
 The reference depends on latticegen (same author, installed from git in
 its CI) for synthetic test lattices and for the Kerelsky fit model
 functions (/root/reference/pyGPA/property_extract.py:6,121,582-586).
-This subpackage provides a TPU-native equivalent: 2x2 lattice
+This subpackage provides a device-native equivalent: 2x2 lattice
 transformations and jit-compiled plane-wave lattice rendering with
 displacement-field support.
 """

@@ -6,7 +6,7 @@ reference (returns sym+1 vectors, trailing zero vector; callers slice
 py:33-40, property_extract.py:121,582-586). hexlattice_gen renders a
 (possibly anisotropic, possibly displaced) hexagonal lattice as a sum
 of plane waves over reciprocal-lattice shells; where latticegen builds
-a lazy dask graph the TPU version is a single fused XLA kernel
+a lazy dask graph this version is a single fused XLA program
 (lax.scan over k-vectors), vmappable and fast at 4096^2+.
 """
 from functools import partial
@@ -32,8 +32,9 @@ def generate_ks(r_k, theta, kappa=1.0, psi=0.0, sym=6):
     angles = jnp.deg2rad(jnp.asarray(theta, jnp.result_type(float))) \
         + jnp.arange(sym) * 2 * jnp.pi / sym
     ks = jnp.asarray(r_k) * jnp.stack([jnp.cos(angles), jnp.sin(angles)], -1)
-    # exact matmul: TPU's bf16 default would corrupt k-geometry by
-    # ~4e-3 relative (~1 px of apparent displacement at image scale)
+    # exact matmul: a reduced-precision default (bf16 or TF32 on
+    # accelerators) would corrupt k-geometry by ~1e-3 relative (~1 px
+    # of apparent displacement at image scale)
     ks = jnp.matmul(ks, anisotropy_matrix(kappa, psi).T,
                     precision=jax.lax.Precision.HIGHEST)
     return jnp.concatenate([ks, jnp.zeros((1, 2), ks.dtype)])

@@ -26,7 +26,8 @@ import jax.numpy as jnp
 
 
 def _mm(a, b):
-    # exact matmul (TPU default is bf16 — geometry must stay float32)
+    # exact matmul (accelerator defaults are bf16/TF32 — geometry must
+    # stay float32)
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 DEFAULT_POISSON = 0.16

@@ -37,7 +37,6 @@ def plane_wave(shape, kvec, dtype=jnp.float32, sign=1.0):
     y = jnp.arange(shape[1], dtype=dtype)[None, :]
     phase = 2 * jnp.pi * (x * kvec[0] + y * kvec[1]) * sign
     ph = phase.astype(dtype)
-    # eager complex literals are UNIMPLEMENTED on the TPU backend
     return jax.lax.complex(jnp.cos(ph), jnp.sin(ph)).astype(cdt)
 
 

@@ -1,4 +1,4 @@
-"""Windowed-Fourier-Ridge sweep — the pipeline's hot loop, TPU-native.
+"""Windowed-Fourier-Ridge sweep — the pipeline's hot loop.
 
 The reference sweeps a grid of candidate reference vectors w around
 each Bragg peak k; for every w it modulates the image, runs a forward
@@ -9,7 +9,7 @@ HOT LOOP #1; CuPy mirror cuGPA.py:41-133). That costs 2 full-size
 complex FFTs per candidate plus per-w plane-wave construction and
 boolean fancy-indexing updates.
 
-TPU formulation (see ops/lockin.py for the identity):
+Single-FFT formulation (see ops/lockin.py for the identity):
 
   M_w(r) = IFFT[ F(q) * G_sigma(q + w) ],   F = FFT(image)  (once!)
 
@@ -27,7 +27,7 @@ TPU formulation (see ops/lockin.py for the identity):
    formulations to the same representative.
  - candidates are processed in chunks via lax.scan with a batched
    inverse FFT (or, when the bandpass window is small, via the zoom
-   matmul kernel below); the carry holds (best |.|^2, best complex,
+   matmul sweep below); the carry holds (best |.|^2, best complex,
    best index, best grad), all updated with jnp.where — the jnp
    analogue of the cupy running-max (cuGPA.py:74-76).
 
@@ -99,9 +99,7 @@ def _wfr_sweep_chunked(spectrum, wlist, sigma, with_grad, chunk):
             ph = -jnp.arctan2(Mw.imag, Mw.real)
             ggx, ggy = _np_gradient_2d(ph)
         # reduce the chunk with an unrolled strict-'>' where-tournament:
-        # first max wins (the reference's sequential update order), and
-        # everything stays fused VPU selects — per-pixel gathers
-        # (take_along_axis) are pathologically slow on TPU here.
+        # first max wins (the reference's sequential update order)
         for i in range(ws.shape[0]):
             better = absq[i] > best_absq
             best_absq = jnp.where(better, absq[i], best_absq)
@@ -172,10 +170,14 @@ def _wfr_sweep_sequential_zoom(spectrum, wlist, idx0, idx1, sigma,
     per candidate the full-resolution demodulated lock-in comes from
     two skinny DFT matmuls on the cropped spectrum window instead of a
     full-size inverse FFT (the sequential continuity gate forces a
-    per-candidate scan, but each step is MXU work). The continuity
-    update semantics are identical to _wfr_sweep_sequential; grads are
-    analytic derivatives of the band-limited interpolant (see
-    pallas_sweep.fused_zoom_sweep grad_ops)."""
+    per-candidate scan, but each step is two small matmuls). The
+    continuity update semantics are identical to
+    _wfr_sweep_sequential; grads are analytic derivatives of the
+    band-limited interpolant: the row-derivative window
+    (2 pi i f0) * S and the column-derivative basis (2 pi i f1) * A1
+    give dM/d(row), dM/d(col), which agree with the reference's
+    np.gradient of the winner phase to O(h^2) on the smooth
+    demodulated phase."""
     n, m = spectrum.shape
     rdt = jnp.zeros((), spectrum.real.dtype).dtype
     wl = wlist.astype(rdt)
@@ -253,13 +255,13 @@ def _wfr_sweep_sequential_zoom(spectrum, wlist, idx0, idx1, sigma,
             best_idx, best_grad)
 
 
-# Matmul precision of the zoom sweep's DFT contractions. HIGH =
-# bf16x3: ~1e-7 relative operand error, measured on-chip at 4e-5
-# amplitude error and ~1e-6 winner flips vs the HIGHEST sweep, for
-# 2-3x MXU throughput (the sweep is compute-bound). Gated by the
-# pipeline-tolerance tests and tests_tpu/test_tpu_hardware.py; set to
-# HIGHEST for bit-level reproduction of the float32-exact path.
-_ZOOM_PRECISION = jax.lax.Precision.HIGH
+# Matmul precision of the zoom sweep's DFT contractions: float32-exact.
+# On an H100, TF32 (Precision.HIGH/DEFAULT there) moves the 4096^2
+# bench gates to 0.027 px raw / 0.025 px dc-free (> 0.002 / 0.0012).
+# The bf16x6 dot algorithm is as accurate and faster on one card, but
+# inside shard_map the algorithm attribute is dropped and the
+# row-sharded sweep silently ran in TF32, so HIGHEST everywhere.
+_ZOOM_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _zoom_window(n, center_bin, half_need):
@@ -271,27 +273,20 @@ def _zoom_window(n, center_bin, half_need):
 
 
 # -ln(G) at the zoom-window edge. 22 -> G ~ 3e-10 (below f32
-# resolution of the passband); module-level so experiments can trade
-# window width (the deep-dot contraction depth) against tail accuracy.
+# resolution of the passband).
 _GAUSS_CUT = 22.0
 
 
-def _plan_zoom(shape, wlist, sigma, *, pad_bins=6, gauss_cut=None,
-               lane=64, min_half=(0, 0)):
+def _plan_zoom(shape, wlist, sigma, *, pad_bins=6, align=64):
     """Plan the band-limited (zoom) sweep: the Gaussian bandpass
     G(q + w) confines every candidate's spectrum to a small window
     around -mean(w); if that window (plus the candidate spread and a
     safety margin) is much smaller than the image, the per-candidate
-    inverse FFT can be computed as two skinny DFT matmuls on the MXU
-    instead of a full-size FFT. Returns (idx0, idx1) window index
-    vectors or None when the window would not be worthwhile.
-
-    gauss_cut is -ln(G) at the window edge (22 -> G ~ 3e-10, below
-    float32 resolution of the passband); None uses _GAUSS_CUT."""
+    inverse FFT can be computed as two skinny DFT matmuls instead of a
+    full-size FFT. Returns (idx0, idx1) window index vectors or None
+    when the window would not be worthwhile."""
     n, m = shape
-    if gauss_cut is None:
-        gauss_cut = _GAUSS_CUT
-    f_band = np.sqrt(gauss_cut / 2.0) / (np.pi * sigma)
+    f_band = np.sqrt(_GAUSS_CUT / 2.0) / (np.pi * sigma)
     w = np.asarray(wlist, np.float64)
     c0 = int(np.round(-np.mean(w[:, 0]) * n))
     c1 = int(np.round(-np.mean(w[:, 1]) * m))
@@ -299,195 +294,14 @@ def _plan_zoom(shape, wlist, sigma, *, pad_bins=6, gauss_cut=None,
     ext1 = np.max(np.abs(-w[:, 1] * m - c1)) if len(w) else 0.0
     need0 = int(np.ceil(f_band * n + ext0)) + pad_bins
     need1 = int(np.ceil(f_band * m + ext1)) + pad_bins
-    # round the half-width up so W = 2*half is a multiple of `lane`
-    half0 = -(-need0 // (lane // 2)) * (lane // 2)
-    half1 = -(-need1 // (lane // 2)) * (lane // 2)
-    # widening a window is always exact (the extra bins just carry
-    # ~zero Gaussian weight): min_half lets multi-peak callers unify
-    # window shapes across peaks so the grouped kernel stays usable
-    half0 = max(half0, int(min_half[0]))
-    half1 = max(half1, int(min_half[1]))
+    # round the half-width up so W = 2*half is a multiple of `align`
+    # (widening is exact: the extra bins carry ~zero Gaussian weight,
+    # and the Bragg peaks of one image then share window shapes)
+    half0 = -(-need0 // (align // 2)) * (align // 2)
+    half1 = -(-need1 // (align // 2)) * (align // 2)
     if 2 * half0 > 0.7 * n or 2 * half1 > 0.7 * m:
         return None
     return _zoom_window(n, c0, half0), _zoom_window(m, c1, half1)
-
-
-def _plan_zoom_multi(shape, wlists, sigma, gauss_cut=None):
-    """Per-peak zoom plans with UNIFIED window shapes: when the
-    per-peak passbands round to different widths, re-plan every peak
-    with the maximum half-widths (widening a window is exact — the
-    extra bins carry ~zero Gaussian weight) so the grouped
-    single-launch kernel stays applicable. Returns a list of plans
-    (None entries where no zoom is worthwhile)."""
-    plans = [_plan_zoom(shape, np.asarray(w), float(sigma),
-                        gauss_cut=gauss_cut)
-             for w in wlists]
-    if (all(p is not None for p in plans)
-            and len({(p[0].shape[0], p[1].shape[0])
-                     for p in plans}) > 1):
-        h0 = max(p[0].shape[0] for p in plans) // 2
-        h1 = max(p[1].shape[0] for p in plans) // 2
-        plans = [_plan_zoom(shape, np.asarray(w), float(sigma),
-                            gauss_cut=gauss_cut, min_half=(h0, h1))
-                 for w in wlists]
-    return plans
-
-
-# Banded (window-recentered) grouped sweeps: each wy-run of candidates
-# contracts against a Wb-wide sub-band of the zoom window instead of
-# the full W1 lanes — the dominant pass-A/B MXU saving. Module flag
-# for on-chip A/B; the planner below still decides per call whether a
-# band is worthwhile.
-_COL_GROUPS = True
-
-
-def _plan_col_groups(wlists, plans, m, sigma, *, pad_bins=6,
-                     gauss_cut=None, lane=64):
-    """Plan the BANDED grouped sweep: candidates whose wy passbands fit
-    a shared Wb-wide column sub-band of the union zoom window are
-    grouped into runs; stage 1 then contracts each run against its
-    own recentered (W0, Wb) spectrum band and passes A/B against a
-    single base-band DFT basis of 2*Wb lanes (the run offset enters as
-    a rank-1 column phase ramp e^{2 pi i c off/m} — |M|^2 is
-    ramp-invariant, so only winner phases/column-gradients carry a
-    per-run correction; see pallas_sweep._grouped_kernel).
-
-    Returns (orders, col_groups, Wb) — per-group candidate
-    permutations (wy-sorted so runs are consecutive), the per-group
-    static ((count, off), ...) run tuples (equal run counts across
-    groups), and the band width — or None when banding is not
-    worthwhile (band ~ union width) or unsafe (window crosses the
-    Nyquist index, which breaks the gradient ramp's linearity)."""
-    if gauss_cut is None:
-        gauss_cut = _GAUSS_CUT
-    W1 = plans[0][1].shape[0]
-    need1 = np.sqrt(gauss_cut / 2.0) / (np.pi * sigma) * m + pad_bins
-    Wb = int(-(-int(np.ceil(2 * need1)) // lane) * lane)
-    if Wb > W1 - lane:
-        return None
-
-    def _off_range(lo, hi):
-        """Valid integer band offsets covering [lo, hi] (or empty)."""
-        return (max(0, int(np.ceil(hi - Wb))),
-                min(W1 - Wb, int(np.floor(lo))))
-
-    orders, groups = [], []
-    for w, plan in zip(wlists, plans):
-        idx1 = np.asarray(plan[1])
-        # banding reuses one base-band basis shifted by a phase ramp;
-        # the column-gradient correction additionally needs f1 linear
-        # across the window, which breaks at the Nyquist index
-        if (m // 2 - int(idx1[0])) % m < W1:
-            return None
-        w = np.asarray(w, np.float64)
-        # window position of each candidate's passband center
-        pf = (-w[:, 1] * m - float(idx1[0])) % m
-        if np.any(pf >= W1):
-            return None
-        order = np.argsort(pf, kind="stable")
-        runs = []
-        i = 0
-        while i < len(order):
-            lo = pf[order[i]] - need1
-            hi = pf[order[i]] + need1
-            j = i
-            while j + 1 < len(order):
-                nhi = pf[order[j + 1]] + need1
-                o_lo, o_hi = _off_range(lo, nhi)
-                if o_lo > o_hi:
-                    break
-                hi = nhi
-                j += 1
-            o_lo, o_hi = _off_range(lo, hi)
-            if o_lo > o_hi:
-                return None
-            runs.append([j - i + 1, o_lo])
-            i = j + 1
-        orders.append(order)
-        groups.append(runs)
-    # the stacked (G, H, W0, Wb) window layout needs equal run counts:
-    # split the largest runs of shorter groups (same off, exact)
-    H = max(len(r) for r in groups)
-    for runs in groups:
-        while len(runs) < H:
-            k = int(np.argmax([c for c, _ in runs]))
-            if runs[k][0] < 2:
-                return None
-            c, off = runs[k]
-            runs[k] = [c - c // 2, off]
-            runs.insert(k + 1, [c // 2, off])
-    col_groups = tuple(tuple((int(c), int(o)) for c, o in runs)
-                       for runs in groups)
-    return [np.asarray(o) for o in orders], col_groups, Wb
-
-
-# Two-level candidate refinement in the grouped sweep's pass A
-# (pallas_sweep._grouped_kernel `refine`): evaluate the stride-2
-# coarse subgrid everywhere, fine candidates only near their coarse
-# winners. Module flag for on-chip A/B; the planner below still
-# decides per call whether the bank has the required grid structure.
-# MEASURED on-chip (4096^2, 3 peaks, banded production config,
-# same-process interleaved A/B, r5): 43.8 ms refined vs 34.9 ms plain
-# — the 27 per-fine-candidate pl.when-guarded dots serialize the MXU
-# against the tournament VPU work and lose to the single batched
-# pass-A dot, the same failure class as the deleted column screening
-# (r4 verdict item 7). Winner fidelity was fine (interior-exact); the
-# cost structure was not. OFF in production; the code path stays
-# covered by the interpret A/Bs and the kernel-smoke tier so the
-# measured negative result remains reproducible.
-_REFINE = False
-
-
-def _plan_refine(wls):
-    """Plan the two-level (coarse -> adjacent-fine) pass-A tournament:
-    detect each bank's rectangular grid structure (the pipeline builds
-    2*ksteps x 2*ksteps k-grids; arbitrary user banks may not have
-    one) and emit per group (coarse_ids, neigh) — the stride-2 coarse
-    subgrid indices and, for each fine candidate, the tuple of
-    Chebyshev-adjacent coarse indices (None entries mark coarse
-    candidates). Works on the wy-sorted banks the banded plan
-    produces (grid detection is order-independent; indices refer to
-    the kernel's candidate order). Returns None when any bank is not
-    an exact rectangular grid of at least 4x4 (coarse+fine would not
-    be cheaper below that)."""
-    plans = []
-    for w in wls:
-        w = np.asarray(w, np.float64)
-        P = w.shape[0]
-
-        def _axis(v):
-            sv = np.sort(v)
-            tol = max(1e-12, float(sv[-1] - sv[0]) * 1e-6)
-            cuts = np.where(np.diff(sv) > tol)[0]
-            edges = np.concatenate([[0], cuts + 1, [len(sv)]])
-            vals = np.array([sv[a:b].mean()
-                             for a, b in zip(edges[:-1], edges[1:])])
-            return vals, tol
-
-        xs, _ = _axis(w[:, 0])
-        ys, _ = _axis(w[:, 1])
-        nx, ny = len(xs), len(ys)
-        if nx * ny != P or nx < 4 or ny < 4:
-            return None
-        ix = np.argmin(np.abs(xs[None, :] - w[:, 0:1]), axis=1)
-        iy = np.argmin(np.abs(ys[None, :] - w[:, 1:2]), axis=1)
-        if len({(int(a), int(b)) for a, b in zip(ix, iy)}) != P:
-            return None
-        coarse = tuple(j for j in range(P)
-                       if ix[j] % 2 == 0 and iy[j] % 2 == 0)
-        neigh = []
-        for j in range(P):
-            if ix[j] % 2 == 0 and iy[j] % 2 == 0:
-                neigh.append(None)
-                continue
-            adj = tuple(c for c in coarse
-                        if abs(int(ix[c]) - int(ix[j])) <= 1
-                        and abs(int(iy[c]) - int(iy[j])) <= 1)
-            if not adj:
-                return None
-            neigh.append(adj)
-        plans.append((coarse, tuple(neigh)))
-    return tuple(plans)
 
 
 def _zoom_basis(n, idx, dtype):
@@ -499,58 +313,17 @@ def _zoom_basis(n, idx, dtype):
     return jnp.cos(ang), jnp.sin(ang)
 
 
-def _dft_windows(image, idx0s, idx1s, rdt):
-    """Forward-DFT spectrum windows of a real image computed DIRECTLY
-    as skinny DFT contractions: the zoom sweep consumes only the G tiny
-    (W0, W1) windows, so the full-size fft2 (~10 ms at 4096^2 on-chip)
-    collapses to two stacked (G*W0, n) @ (n, m) dots plus G small
-    second stages (~1 ms). Bit-equal to windowing fft2(image) up to
-    matmul rounding (gated e2e like every other HIGH contraction).
-    Returns (Sr, Si): (G, W0, W1) raw (unnormalized) window values."""
-    n, m = image.shape
-    G, W0 = idx0s.shape
-    # e^{-2 pi i r idx / n} = cos - i sin of the inverse-basis angle;
-    # building the bases on the flattened index vector yields the
-    # G-stacked (n, G*W0) operand directly (no moveaxis relayout)
-    A0c, A0s = _zoom_basis(n, idx0s.reshape(-1), rdt)   # (n, G*W0)
-    hi = _ZOOM_PRECISION
-    Ur = jnp.einsum("nw,nm->wm", A0c, image, precision=hi)
-    Ui = -jnp.einsum("nw,nm->wm", A0s, image, precision=hi)
-    Ur = Ur.reshape(G, W0, m)
-    Ui = Ui.reshape(G, W0, m)
-    A1c, A1s = jax.vmap(lambda i: _zoom_basis(m, i, rdt))(idx1s)
-    Sr = (jnp.einsum("gwm,gmv->gwv", Ur, A1c, precision=hi)
-          + jnp.einsum("gwm,gmv->gwv", Ui, A1s, precision=hi))
-    Si = (jnp.einsum("gwm,gmv->gwv", Ui, A1c, precision=hi)
-          - jnp.einsum("gwm,gmv->gwv", Ur, A1s, precision=hi))
-    return Sr, Si
-
-
-# Fully-fused sweep (ops.pallas_sweep): both DFT matmul stages and the
-# selection run in one kernel — neither the (C, N, W1) partials nor the
-# (C, N, M) candidate planes ever touch HBM, and the whole sweep is one
-# launch (no lax.scan).
-_PALLAS_SWEEP = True
-
-
-def _use_pallas_sweep():
-    return _PALLAS_SWEEP and jax.default_backend() == "tpu"
-
-
-@partial(jax.jit, static_argnames=("sigma", "with_grad", "chunk",
-                                   "interpret"))
+@partial(jax.jit, static_argnames=("sigma", "with_grad", "chunk"))
 def _wfr_sweep_zoom(spectrum, wlist, idx0, idx1, sigma, with_grad,
-                    chunk, interpret=False):
+                    chunk):
     """Band-limited sweep: crop the spectrum to the (W0, W1) window all
     candidate bandpasses live in, then per candidate compute the
     full-resolution demodulated lock-in M_w as two real-decomposed
-    skinny matmuls (MXU) instead of a full-size inverse FFT. Identical
+    skinny matmuls instead of a full-size inverse FFT. Identical
     values to _wfr_sweep_chunked up to the sub-float32 window
-    truncation (G < 3e-10 outside) and matmul rounding at HIGHEST
-    precision."""
+    truncation (G < 3e-10 outside) and matmul rounding."""
     n, m = spectrum.shape
     rdt = jnp.zeros((), spectrum.real.dtype).dtype
-    W0, W1 = idx0.shape[0], idx1.shape[0]
     P = wlist.shape[0]
     pad = (-P) % chunk
     wl = jnp.concatenate([wlist.astype(rdt),
@@ -569,45 +342,12 @@ def _wfr_sweep_zoom(spectrum, wlist, idx0, idx1, sigma, with_grad,
     s2 = jnp.asarray(2.0 * np.pi ** 2 * sigma ** 2, rdt)
     hi = _ZOOM_PRECISION
 
-    use_fused = ((_use_pallas_sweep() or interpret)
-                 and rdt == jnp.float32
-                 and n % 128 == 0 and m % 128 == 0)
-    if use_fused:
-        from .pallas_sweep import fused_zoom_sweep
-        wreal = wlist.astype(rdt)         # no sentinel padding needed
-        gx = jnp.exp(-s2 * (f0[None, :] + wreal[:, 0:1]) ** 2)
-        gy = jnp.exp(-s2 * (f1[None, :] + wreal[:, 1:2]) ** 2)
-        gkw = {}
-        if with_grad:
-            # analytic winner phase gradient from the kernel: the
-            # row-derivative window S2 = (2 pi i f0) * S and the
-            # column-derivative basis A1y = (2 pi i f1) * A1 give
-            # dM/d(row), dM/d(col) of the band-limited interpolant —
-            # the continuous counterpart of the reference's
-            # np.gradient of the per-candidate phase
-            # (geometric_phase_analysis.py:793-812); they agree to
-            # O(h^2 phi''') on the smooth demodulated phase.
-            tpf0 = (2 * jnp.pi) * f0
-            tpf1 = (2 * jnp.pi) * f1
-            gkw = dict(grad_ops=(
-                -tpf0[:, None] * Si * scale,
-                tpf0[:, None] * Sr * scale,
-                -A1s * tpf1[None, :],
-                A1c * tpf1[None, :]))
-        out = fused_zoom_sweep(
-            Sr * scale, Si * scale, gx, gy, A0c, A0s, A1c, A1s,
-            precision=hi, interpret=interpret, **gkw)
-        best_absq, best_r, best_i, best_idx = out[:4]
-        best_grad = (jnp.stack([out[4], out[5]], axis=-1) if with_grad
-                     else jnp.zeros((0,), rdt))
-        return (best_absq, jax.lax.complex(best_r, best_i), best_idx,
-                best_grad)
-
     def mm(a, b):
         return jnp.einsum("rw,cwv->crv", a, b, precision=hi)
 
     def mmT(a, b):
         return jnp.einsum("crv,sv->crs", a, b, precision=hi)
+
 
     def body(carry, xs):
         best_absq, best_r, best_i, best_idx, best_grad = carry
@@ -647,178 +387,36 @@ def _wfr_sweep_zoom(spectrum, wlist, idx0, idx1, sigma, with_grad,
             best_grad)
 
 
-@partial(jax.jit, static_argnames=("sigma", "dr", "chunk", "interpret"))
-def _wfr_sweep_zoom_pw(spectrum, wlist, idx0, idx1, sigma, dr, chunk,
-                       interpret=False):
-    """Fused zoom sweep emitting the winner PHASE and rim-masked
-    WEIGHT directly from the kernel (pipeline hot path: skips the
-    angle/sqrt/mask XLA passes and never materializes the complex
-    lock-in). Requires the fused TPU path; the caller guards."""
-    n, m = spectrum.shape
-    rdt = jnp.zeros((), spectrum.real.dtype).dtype
-    S = jnp.take(jnp.take(spectrum, idx0, axis=0), idx1, axis=1)
-    A0c, A0s = _zoom_basis(n, idx0, rdt)
-    A1c, A1s = _zoom_basis(m, idx1, rdt)
-    scale = jnp.asarray(1.0 / (n * m), rdt)
-    f0 = jnp.where(idx0 < n // 2 + n % 2, idx0, idx0 - n).astype(rdt) / n
-    f1 = jnp.where(idx1 < m // 2 + m % 2, idx1, idx1 - m).astype(rdt) / m
-    s2 = jnp.asarray(2.0 * np.pi ** 2 * sigma ** 2, rdt)
-    wreal = wlist.astype(rdt)
-    gx = jnp.exp(-s2 * (f0[None, :] + wreal[:, 0:1]) ** 2)
-    gy = jnp.exp(-s2 * (f1[None, :] + wreal[:, 1:2]) ** 2)
-    from .pallas_sweep import fused_zoom_sweep
-    out = fused_zoom_sweep(S.real * scale, S.imag * scale, gx, gy,
-                           A0c, A0s, A1c, A1s,
-                           precision=_ZOOM_PRECISION,
-                           emit_dr=(int(dr),), interpret=interpret)
-    return out[4], out[5]          # phase, weight
-
-
 def wfr_sweep_phase_weight(image, wlist, kref, sigma, dr, *,
-                           spectrum=None, chunk=8, gauss_cut=None,
-                           interpret=False):
+                           spectrum=None, chunk=8):
     """Demodulated winner phase + interior-masked weight of a WFR
     sweep — the exact inputs reconstruct_u_inv_from_demod consumes
     (weight = sqrt(absq) * (interior mask + 1e-6), the rim mask of
-    extract_displacement_field, geometric_phase_analysis.py:923-926).
-    Kernel-emitted on the fused TPU path; XLA elsewhere.
-
-    gauss_cut trims the kernel path's zoom window (see _plan_zoom);
-    the XLA fallback re-plans internally at the exact-grade default,
-    so the knob only affects the fused TPU route."""
+    extract_displacement_field, geometric_phase_analysis.py:923-926)."""
     if int(dr) < 1:
         # at dr=0 the reference's .at[0:-0, 0:-0] rim is an EMPTY slice
-        # (weight floor everywhere) while the kernel's interior test is
-        # all-true — refuse the backend-dependent case outright; the
+        # (weight floor everywhere), which no caller means; the
         # pipeline always passes dr = 2*sigma >= 2.
         raise ValueError("wfr_sweep_phase_weight requires dr >= 1 "
                          f"(got {dr})")
     if spectrum is None:
         image = jnp.asarray(image)
         spectrum = jnp.fft.fft2(image)
-    shape = spectrum.shape
-    plan = None
-    if not isinstance(wlist, jax.core.Tracer):
-        plan = _plan_zoom(shape, np.asarray(wlist), float(sigma),
-                          gauss_cut=gauss_cut)
-    if (plan is not None and (_use_pallas_sweep() or interpret)
-            and jnp.zeros((), spectrum.real.dtype).dtype == jnp.float32
-            and shape[0] % 128 == 0 and shape[1] % 128 == 0
-            and np.asarray(wlist).shape[0] <= 48):
-        return _wfr_sweep_zoom_pw(spectrum, jnp.asarray(wlist),
-                                  jnp.asarray(plan[0]),
-                                  jnp.asarray(plan[1]), float(sigma),
-                                  int(dr), int(chunk),
-                                  interpret=interpret)
     g = wfr_sweep(image, wlist, kref, sigma, with_w=False,
                   rebase=False, return_absq=True, spectrum=spectrum,
                   chunk=chunk)
     rdt = jnp.zeros((), spectrum.real.dtype).dtype
-    mask = jnp.zeros(shape, rdt).at[dr:-dr, dr:-dr].set(1.0)
+    mask = jnp.zeros(spectrum.shape, rdt).at[dr:-dr, dr:-dr].set(1.0)
     weight = jnp.sqrt(g["absq"]) * (mask + 1e-6)
     return jnp.angle(g["lockin"]).astype(rdt), weight
 
 
-@partial(jax.jit,
-         static_argnames=("sigma", "dr", "with_grad",
-                          "direct", "uv_ks", "interpret",
-                          "col_groups", "refine"))
-def _wfr_sweep_zoom_pw_grouped(spectrum, wl, idx0s, idx1s, sigma, dr,
-                               with_grad=False,
-                               direct=False, uv_ks=None,
-                               interpret=False, col_groups=None,
-                               refine=None):
-    """All G Bragg-peak sweeps in ONE kernel launch (grouped emit-only
-    kernel): per group its own spectrum window, Gaussian factors and
-    DFT bases. wl: (G, P, 2); idx0s: (G, W0); idx1s: (G, W1).
-    with_grad additionally returns the kernel-emitted winner
-    phase-gradient planes (gx, gy), each (G, n, m), BEFORE the
-    wfr2_grad_opt rebase epilogue (the caller applies it).
-
-    direct=True: `spectrum` is the real (n, m) IMAGE and the windows
-    are computed by skinny DFT matmuls (_dft_windows) — the full-size
-    fft2 never runs.
-
-    uv_ks: STATIC G-tuple of (k_row, k_col) nominal-k float pairs —
-    switch the kernel to the fused RECONSTRUCTION-PROLOGUE emission:
-    returns (dudx_s (2, n, m), dudy_s (2, n, m), wnorm (n, m))
-    shifted planes (see pallas_sweep.fused_zoom_sweep_grouped); the
-    phase/weight planes never leave VMEM. Mutually exclusive with
-    with_grad."""
-    n, m = spectrum.shape
-    rdt = (spectrum.dtype if direct
-           else jnp.zeros((), spectrum.real.dtype).dtype)
-    scale = jnp.asarray(1.0 / (n * m), rdt)
-    if direct:
-        Sr_raw, Si_raw = _dft_windows(spectrum, idx0s, idx1s, rdt)
-    else:
-        S = jax.vmap(lambda i0, i1: jnp.take(
-            jnp.take(spectrum, i0, axis=0), i1, axis=1))(idx0s, idx1s)
-        Sr_raw, Si_raw = S.real, S.imag
-    Sr = Sr_raw * scale
-    Si = Si_raw * scale
-    A0c, A0s = jax.vmap(lambda i: _zoom_basis(n, i, rdt))(idx0s)
-    A1c, A1s = jax.vmap(lambda i: _zoom_basis(m, i, rdt))(idx1s)
-    f0 = jnp.where(idx0s < n // 2 + n % 2, idx0s,
-                   idx0s - n).astype(rdt) / n          # (G, W0)
-    f1 = jnp.where(idx1s < m // 2 + m % 2, idx1s,
-                   idx1s - m).astype(rdt) / m
-    s2 = jnp.asarray(2.0 * np.pi ** 2 * sigma ** 2, rdt)
-    wr = wl.astype(rdt)
-    gxs = jnp.exp(-s2 * (f0[:, None, :] + wr[:, :, 0:1]) ** 2)
-    gys = jnp.exp(-s2 * (f1[:, None, :] + wr[:, :, 1:2]) ** 2)
-    grad_ops = None
-    if with_grad:
-        tpf0 = (2 * jnp.pi) * f0
-        tpf1 = (2 * jnp.pi) * f1
-        grad_ops = (-tpf0[:, :, None] * Si,
-                    tpf0[:, :, None] * Sr,
-                    -A1s * tpf1[:, None, :],
-                    A1c * tpf1[:, None, :])
-    uv_tp = None
-    if uv_ks is not None:
-        if with_grad:
-            raise ValueError("uv_ks and with_grad are mutually "
-                             "exclusive")
-        uv_tp = tuple((2 * np.pi * k0, 2 * np.pi * k1)
-                      for k0, k1 in uv_ks)
-    from .pallas_sweep import fused_zoom_sweep_grouped
-    return fused_zoom_sweep_grouped(
-        Sr, Si, gxs, gys, A0c, A0s, A1c, A1s,
-        grad_ops, uv_ks=uv_tp, dr=int(dr),
-        precision=_ZOOM_PRECISION,
-        interpret=interpret, col_groups=col_groups, refine=refine)
-
-
-def wfr_sweep_uv_multi(image, wlists, sigma, dr, krefs, *,
-                       spectrum=None, gauss_cut=None,
-                       interpret=False):
-    """Fused sweep + reconstruction prologue for ALL Bragg peaks in
-    one kernel launch: returns (dudx_s (2, N, M), dudy_s (2, N, M),
-    wnorm (N, M)) — the SHIFTED per-pixel weighted-lstsq displacement
-    gradients and weight norm that reconstruct_u_inv_from_uv
-    integrates (reference geometric_phase_analysis.py:97-113,196-245
-    collapsed into the sweep). Returns None when the grouped kernel
-    path is unavailable (caller falls back to
-    wfr_sweep_phase_weight_multi + reconstruct_u_inv_from_demod)."""
-    return wfr_sweep_phase_weight_multi(
-        image, wlists, sigma, dr, spectrum=spectrum,
-        gauss_cut=gauss_cut, krefs=krefs, _uv=True,
-        interpret=interpret)
-
-
 def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *,
                                  spectrum=None, chunk=8,
-                                 with_grad=False, krefs=None,
-                                 gauss_cut=None, _uv=False,
-                                 interpret=False):
+                                 with_grad=False, krefs=None):
     """Demodulated winner phases + rim-masked weights for ALL Bragg
-    peaks of a pipeline sweep. On the fused TPU path the G sweeps run
-    as ONE grouped kernel launch (no per-peak launch overhead; group
-    g+1's MXU dots overlap group g's tournament). Falls back to
-    per-peak wfr_sweep_phase_weight when the windows differ in shape
-    or the kernel path is unavailable. Returns (phases (G, N, M),
-    weights (G, N, M)).
+    peaks of a pipeline sweep: one per-peak sweep each, sharing one
+    image spectrum. Returns (phases (G, N, M), weights (G, N, M)).
 
     with_grad=True additionally returns grads (G, N, M, 2) — each
     peak's wfr2_grad_opt winner phase gradient
@@ -826,79 +424,15 @@ def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *,
     k-vector: wrapToPi(2*(g - 2 pi k))/2,
     geometric_phase_analysis.py:812). Requires krefs: (G, 2) nominal
     k-vectors (one per peak)."""
-    if (with_grad or _uv) and krefs is None:
+    if with_grad and krefs is None:
         raise ValueError(
             "wfr_sweep_phase_weight_multi(with_grad=True) requires "
             "krefs (the per-peak nominal k-vectors)")
-    if with_grad and _uv:
-        raise ValueError("with_grad and _uv are mutually exclusive")
     if spectrum is None:
-        # the fft2 is DEFERRED: the grouped kernel path computes its
-        # tiny spectrum windows directly from the image (_dft_windows)
-        # and never needs the full-size transform; the fallback paths
-        # below compute it lazily
         image = jnp.asarray(image)
-        shape = image.shape
-        rdt = jnp.zeros((), jnp.asarray(image).real.dtype).dtype
-    else:
-        shape = spectrum.shape
-        rdt = jnp.zeros((), spectrum.real.dtype).dtype
-    concrete = all(not isinstance(w, jax.core.Tracer) for w in wlists)
-    plans = None
-    if concrete:
-        plans = _plan_zoom_multi(shape, wlists, float(sigma),
-                                 gauss_cut=gauss_cut)
-    use_grouped = (
-        plans is not None and all(p is not None for p in plans)
-        and (_use_pallas_sweep() or interpret)
-        and rdt == jnp.float32
-        and shape[0] % 128 == 0 and shape[1] % 128 == 0
-        and len({(p[0].shape[0], p[1].shape[0]) for p in plans}) == 1
-        and len({np.asarray(w).shape[0] for w in wlists}) == 1
-        and np.asarray(wlists[0]).shape[0] <= 48
-        and int(dr) >= 1)
-    if not use_grouped and _uv:
-        return None
-    if use_grouped:
-        wls = [np.asarray(w) for w in wlists]
-        col_groups = None
-        if _COL_GROUPS:
-            cg = _plan_col_groups(wls, plans, shape[1], float(sigma),
-                                  gauss_cut=gauss_cut)
-            if cg is not None:
-                orders, groups, Wb = cg
-                # wy-sort each bank so band runs are consecutive; the
-                # kernel emits no candidate indices, so order only
-                # affects strict-inequality tie winners (same class as
-                # the bf16 pass-A near-ties, accuracy-gated)
-                wls = [w[o] for w, o in zip(wls, orders)]
-                col_groups = (int(Wb), groups)
-        refine = _plan_refine(wls) if _REFINE else None
-        wl = jnp.asarray(np.stack(wls))
-        idx0s = jnp.asarray(np.stack([p[0] for p in plans]))
-        idx1s = jnp.asarray(np.stack([p[1] for p in plans]))
-        direct = spectrum is None
-        uv_tp = None
-        if _uv:
-            # k-vectors are host-known at trace time on this path
-            # (the pipeline passes numpy); static per-group scalars
-            # let the kernel fold them into its VPU epilogue
-            uv_tp = tuple((float(k[0]), float(k[1]))
-                          for k in np.asarray(krefs))
-        out = _wfr_sweep_zoom_pw_grouped(
-            image if direct else spectrum, wl, idx0s, idx1s,
-            float(sigma), int(dr),
-            with_grad=with_grad, direct=direct, uv_ks=uv_tp,
-            interpret=interpret, col_groups=col_groups,
-            refine=refine)
-        if _uv or not with_grad:
-            return out
-        ph, wt, ggx, ggy = out
-        g = (jnp.stack([ggx, ggy], axis=-1)
-             - 2 * jnp.pi * jnp.asarray(krefs, rdt)[:, None, None, :])
-        return ph, wt, wrap_to_pi(2.0 * g) / 2.0
-    if spectrum is None:
         spectrum = jnp.fft.fft2(image)
+    shape = spectrum.shape
+    rdt = jnp.zeros((), spectrum.real.dtype).dtype
     phs, wts, gds = [], [], []
     for i, w in enumerate(wlists):
         if with_grad:
@@ -919,8 +453,7 @@ def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *,
                                             jnp.asarray(w)[0],
                                             sigma, dr,
                                             spectrum=spectrum,
-                                            chunk=chunk,
-                                            gauss_cut=gauss_cut)
+                                            chunk=chunk)
             phs.append(ph)
             wts.append(wt)
     if with_grad:
@@ -930,7 +463,7 @@ def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *,
 
 def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
               continuity_dk=None, chunk=8, spectrum=None, zoom="auto",
-              rebase=True, return_absq=False, interpret=False):
+              rebase=True, return_absq=False):
     """Run a WFR sweep over candidate vectors `wlist` rebased to `kref`.
 
     Parameters
@@ -1019,35 +552,21 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
             best_absq, best_lockin, best_idx, best_grad = _wfr_sweep_zoom(
                 spectrum, jnp.asarray(wlist), jnp.asarray(plan[0]),
                 jnp.asarray(plan[1]), float(sigma), with_grad,
-                int(min(chunk, wlist.shape[0])), interpret=interpret)
+                int(min(chunk, wlist.shape[0])))
         else:
             best_absq, best_lockin, best_idx, best_grad = \
                 _wfr_sweep_chunked(
                     spectrum, wlist, float(sigma), with_grad,
                     int(min(chunk, wlist.shape[0])))
         # table lookup only when the caller wants the k-map (skipped on
-        # the pipeline hot path). For small tables an unrolled
-        # where-select beats XLA's per-pixel gather by ~25x on TPU
-        # (gathers run on the scalar core, ~70M idx/s).
+        # the pipeline hot path)
         w_field = None
         if with_w:
-            wl = wlist.astype(rdt)
-            if wlist.shape[0] <= 64:
-                wx = jnp.full(best_idx.shape, wl[0, 0], rdt)
-                wy = jnp.full(best_idx.shape, wl[0, 1], rdt)
-                for p in range(1, wlist.shape[0]):
-                    sel = best_idx == p
-                    wx = jnp.where(sel, wl[p, 0], wx)
-                    wy = jnp.where(sel, wl[p, 1], wy)
-                w_field = jnp.stack([wx, wy], axis=-1)
-            else:
-                w_field = wl[best_idx]
+            w_field = wlist.astype(rdt)[best_idx]
 
     if rebase:
         # separable rank-1 plane wave: two length-N exp vectors instead
         # of a full-size transcendental field
-        # lax.complex(cos, sin) rather than exp(2j*...): a complex
-        # literal in an EAGER op is UNIMPLEMENTED on the TPU backend
         phx = (2 * jnp.pi) * (jnp.arange(shape[0], dtype=rdt)
                               * kref[0].astype(rdt))
         phy = (2 * jnp.pi) * (jnp.arange(shape[1], dtype=rdt)

@@ -1,12 +1,12 @@
 """Distributed 2D FFT and spatially-sharded WFR sweep.
 
-For single images that exceed one chip's HBM comfort (8k^2+ complex
+For single images that exceed one device's memory comfort (8k^2+ complex
 intermediates; SURVEY.md 'Multi-device scaling'), the image stays
 ROW-SHARDED over the mesh for its whole lifetime:
 
  - fft2_sharded / ifft2_sharded: classic pencil decomposition. Each
    device FFTs its full local rows along the minor axis, one
-   all_to_all over ICI re-pencils the array column-sharded, the major
+   all_to_all re-pencils the array column-sharded, the major
    axis is FFT'd locally, and a second all_to_all restores row
    sharding. No device ever holds the full array.
  - wfr_sweep_spatial: the zoom-window WFR sweep with the OUTPUT rows
@@ -16,9 +16,8 @@ ROW-SHARDED over the mesh for its whole lifetime:
    candidate plane with the zoom matmuls — embarrassingly parallel in
    rows, so the argmax carries never cross devices.
 
-Everything is shard_map + jnp; on TPU the inner zoom matmuls go
-through the same code path that feeds the fused Pallas kernel on a
-single chip (ops/wfr.py routes per backend).
+Everything is shard_map + jnp; the inner zoom matmuls use the
+single-device sweep's bases and precision (ops/wfr.py).
 """
 from functools import partial
 
@@ -28,7 +27,7 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.wfr import _plan_zoom, _zoom_basis
+from ..ops.wfr import _ZOOM_PRECISION, _plan_zoom, _zoom_basis
 
 
 def _fft_local(x, axis, inverse):
@@ -108,8 +107,10 @@ def wfr_sweep_spatial(image, wlist, kref, sigma, mesh, axis="batch",
         np.float64) / n
     f1 = np.where(idx1 < m // 2 + m % 2, idx1, idx1 - m).astype(
         np.float64) / m
-    gx_all = np.exp(-s2 * (f0[None, :] + wl[:, 0:1]) ** 2).astype(rdt)
-    gy_all = np.exp(-s2 * (f1[None, :] + wl[:, 1:2]) ** 2).astype(rdt)
+    gx_all = jnp.asarray(
+        np.exp(-s2 * (f0[None, :] + wl[:, 0:1]) ** 2).astype(rdt))
+    gy_all = jnp.asarray(
+        np.exp(-s2 * (f1[None, :] + wl[:, 1:2]) ** 2).astype(rdt))
     A1c, A1s = _zoom_basis(m, jnp.asarray(idx1), rdt)   # (m, W1)
     scale = 1.0 / (n * m)
 
@@ -121,14 +122,14 @@ def wfr_sweep_spatial(image, wlist, kref, sigma, mesh, axis="batch",
         A0c, A0s = jnp.cos(ang), jnp.sin(ang)           # (n/D, W0)
         Sr = S.real.astype(rdt) * scale
         Si = S.imag.astype(rdt) * scale
-        best_absq = jnp.zeros((rows_per, m), rdt)
-        best_r = jnp.zeros((rows_per, m), rdt)
-        best_i = jnp.zeros((rows_per, m), rdt)
-        best_idx = jnp.zeros((rows_per, m), jnp.int32)
-        hi = jax.lax.Precision.HIGHEST
-        for ci in range(wl.shape[0]):
-            Swr = gx_all[ci][:, None] * Sr * gy_all[ci][None, :]
-            Swi = gx_all[ci][:, None] * Si * gy_all[ci][None, :]
+        hi = _ZOOM_PRECISION
+
+        def body(ci, carry):
+            best_absq, best_r, best_i, best_idx = carry
+            gx = gx_all[ci]
+            gy = gy_all[ci]
+            Swr = gx[:, None] * Sr * gy[None, :]
+            Swi = gx[:, None] * Si * gy[None, :]
             Tr = (jnp.einsum("rw,wv->rv", A0c, Swr, precision=hi)
                   - jnp.einsum("rw,wv->rv", A0s, Swi, precision=hi))
             Ti = (jnp.einsum("rw,wv->rv", A0c, Swi, precision=hi)
@@ -139,10 +140,18 @@ def wfr_sweep_spatial(image, wlist, kref, sigma, mesh, axis="batch",
                   + jnp.einsum("rv,sv->rs", Ti, A1c, precision=hi))
             absq = Mr * Mr + Mi * Mi
             sel = absq > best_absq
-            best_absq = jnp.where(sel, absq, best_absq)
-            best_r = jnp.where(sel, Mr, best_r)
-            best_i = jnp.where(sel, Mi, best_i)
-            best_idx = jnp.where(sel, ci, best_idx)
+            return (jnp.where(sel, absq, best_absq),
+                    jnp.where(sel, Mr, best_r),
+                    jnp.where(sel, Mi, best_i),
+                    jnp.where(sel, ci, best_idx))
+
+        # the carries become device-varying inside the loop
+        init = jax.lax.pcast(
+            (jnp.zeros((rows_per, m), rdt), jnp.zeros((rows_per, m), rdt),
+             jnp.zeros((rows_per, m), rdt),
+             jnp.zeros((rows_per, m), jnp.int32)), (axis,), to="varying")
+        best_absq, best_r, best_i, best_idx = jax.lax.fori_loop(
+            0, wl.shape[0], body, init)
         return best_absq, best_r, best_i, best_idx
 
     def body(spec_local):

@@ -9,7 +9,9 @@ def make_mesh(n_devices=None, axis_names=("batch",), shape=None):
 
     With one axis name the mesh is 1D (data parallel); pass shape for
     multi-axis layouts, e.g. make_mesh(8, ("batch", "k"), (2, 4)) to
-    split image batches over ICI rings and k-candidates within.
+    split image batches over one axis and k-candidates over the other.
+    The layout follows the algorithm alone: the cards of one host are
+    joined all to all (NVLink), so no axis is closer than another.
     """
     devices = jax.devices()
     if n_devices is None:

@@ -9,7 +9,7 @@ Two axes of parallelism, composable on one mesh:
  - k-sweep ("candidate parallel"): the WFR candidate grid of a single
    large image is split across devices; each device sweeps its slice
    against the (replicated) image spectrum, then the per-pixel argmax
-   is combined with pmax/psum collectives — the TPU analogue of the
+   is combined with pmax/psum collectives — the device-mesh analogue of the
    reference's dask-chunked wfr2_only_lockin_vec
    (/root/reference/pyGPA/geometric_phase_analysis.py:705-719).
 """
@@ -95,7 +95,7 @@ def extract_displacement_field_batch(images, kvecs, mesh=None,
                                      axis="batch", **kwargs):
     """Displacement fields for a stack of images, batch-sharded over
     the mesh: vmap of the full pipeline under jit with a batch
-    sharding — the TPU equivalent of mapping the pipeline over
+    sharding — the device-mesh equivalent of mapping the pipeline over
     dask-chunked mosaic tiles."""
     images = jnp.asarray(images)
     kvecs = np.asarray(kvecs)

@@ -1,7 +1,7 @@
 """Row-sharded weighted phase unwrap and the fully-sharded
 displacement pipeline.
 
-Completes the >single-chip-HBM story (SURVEY.md §5 'Multi-device
+Completes the larger-than-one-device story (SURVEY.md §5 'Multi-device
 scaling'; reference analogue: dask chunking,
 /root/reference/pyGPA/geometric_phase_analysis.py:705-719): after the
 spatially-sharded WFR sweep (parallel/fft.py) the image's phases stay
@@ -11,7 +11,7 @@ ROW-SHARDED through the remaining pipeline stages:
    elementwise, GSPMD keeps the sharding with zero collectives;
  - the Ghiglia-Romero CG unwrap runs with a DISTRIBUTED DCT
    preconditioner: the same pencil all_to_all pattern as fft2_sharded
-   (lane-axis DCT local, one all_to_all to re-pencil columns, row-axis
+   (last-axis DCT local, one all_to_all to re-pencil columns, row-axis
    DCT local, all_to_all back), plugged into solvers/unwrap.py via its
    `precond` hook. CG stencils (diff/pad halos) and inner products
    compile to halo exchanges / all-reduces under jit;
@@ -31,9 +31,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..config import DEFAULTS
-from ..core.fourier import (dct2_1d, idct2_1d, _dct2_axis2_mxu,
-                            _idct2_axis2_mxu, _mxu_fft_supported)
+from ..core.fourier import dct2_1d, idct2_1d
 from ..core.mathtools import wrap_to_pi
+from ..gpa.pipeline import pipeline_candidate_grids
 from ..solvers.lstsq import weighted_lstsq_stack
 from ..solvers.unwrap import (_cg_unwrap, _residual,
                               phase_unwrap_prediff_mg)
@@ -41,19 +41,15 @@ from .fft import fft2_sharded, wfr_sweep_spatial
 
 
 def _dct_axis2(x):
-    if _mxu_fft_supported(x.shape[-2]) and x.shape[-2] % 2 == 0:
-        return _dct2_axis2_mxu(x)
     return jnp.swapaxes(dct2_1d(jnp.swapaxes(x, -1, -2)), -1, -2)
 
 
 def _idct_axis2(x):
-    if _mxu_fft_supported(x.shape[-2]) and x.shape[-2] % 2 == 0:
-        return _idct2_axis2_mxu(x)
     return jnp.swapaxes(idct2_1d(jnp.swapaxes(x, -1, -2)), -1, -2)
 
 
 def _pencil_dct(x_local, axis_name, inverse):
-    """Local (..., n/D, m) block -> 2D-DCT'd local block. Lane axis
+    """Local (..., n/D, m) block -> 2D-DCT'd local block. Last axis
     first (rows complete locally), re-pencil via all_to_all so the row
     axis is complete, transform it, pencil back — the fft2_sharded
     pattern with DCT-II in place of the complex FFT."""
@@ -148,8 +144,7 @@ def phase_unwrap_prediff_sharded(dx, dy, weight, mesh, axis="batch",
     rk, WWx, WWy = _residual(dx, dy, weight)
     n = dx.shape[-2]
     m = dy.shape[-1]
-    phi, _ = _cg_unwrap(rk, WWx, WWy, int(kmax), None,
-                        factory((n, m)))
+    phi, _ = _cg_unwrap(rk, WWx, WWy, int(kmax), factory((n, m)))
     return phi
 
 
@@ -188,19 +183,14 @@ def extract_displacement_field_sharded(image, kvecs, mesh,
                                        unwrap_kmax_reconstruct,
                                        unwrap_coarse=None):
     """extract_displacement_field for ONE image too large for a single
-    chip's HBM: the image stays row-sharded (P(axis, None)) through
+    device's memory: the image stays row-sharded (P(axis, None)) through
     pencil FFT -> spatially-sharded WFR sweeps -> per-pixel lstsq ->
     distributed multigrid unwrap. Same math as the single-device
     pipeline (geometric_phase_analysis.py:907-932); equivalence is
     tested on the 8-device CPU mesh (tests/test_parallel.py)."""
     kvecs_h = np.asarray(kvecs, np.float64)
-    knorms = np.linalg.norm(kvecs_h, axis=1)
-    if not np.all(knorms > 0):
-        raise ValueError("all k-vectors must be nonzero")
-    kw = knorms.mean() / kwscale
-    if sigma is None:
-        sigma = int(np.ceil(1 / knorms.min()))
-    kstep = kw / ksteps
+    sigma, wlists = pipeline_candidate_grids(kvecs_h, sigma, kwscale,
+                                             ksteps)
     dr = 2 * sigma
 
     image = jnp.asarray(image)
@@ -218,11 +208,7 @@ def extract_displacement_field_sharded(image, kvecs, mesh,
     mask = interior.astype(rdt) + jnp.asarray(1e-6, rdt)
 
     phs, wts = [], []
-    for pk in kvecs_h:
-        wxs = np.arange(pk[0] - kw, pk[0] + kw, kstep)
-        wys = np.arange(pk[1] - kw, pk[1] + kw, kstep)
-        wx, wy = np.meshgrid(wxs, wys, indexing="ij")
-        wlist = np.stack([wx.ravel(), wy.ravel()], -1)
+    for pk, wlist in zip(kvecs_h, wlists):
         g = wfr_sweep_spatial(img0, wlist, pk, sigma, mesh, axis=axis,
                               spectrum=spectrum)
         lock = g["lockin"]

@@ -3,7 +3,7 @@ properties (twist angle, anisotropy direction/magnitude, scale,
 heterostrain).
 
 Reference behavior: /root/reference/pyGPA/property_extract.py:13-578.
-TPU-native notes:
+Implementation notes:
  - every np.linalg.svd over (N, M, 2, 2) fields is replaced by a
    closed-form, fully vectorized 2x2 SVD (svd2x2) that returns the
    same symmetric-Householder left factor LAPACK produces, so the
@@ -28,8 +28,9 @@ def svd2x2_planes(a, b, c, d):
     """Closed-form 2x2 SVD on separate component planes
     (a=A00, b=A01, c=A10, d=A11). Returns
     ((u00,u01,u10,u11), (s0,s1), (v00,v01,v10,v11)) — all elementwise
-    arrays. TPU note: trailing (...,2,2) dims tile-pad 64x in HBM, so
-    big property fields must stay in plane layout end to end."""
+    arrays: big property fields stay in plane layout end to end (a
+    trailing (..., 2, 2) layout makes every elementwise pass work on
+    2-element minor dimensions)."""
     E = (a + d) * 0.5
     F = (a - d) * 0.5
     G = (c + b) * 0.5
@@ -93,8 +94,8 @@ def _props_core(a, b, c, d, refangle=0.0, refscale=1.0, diff=False,
 def props_from_planes(J00, J01, J10, J11, refangle=0.0, refscale=1.0,
                       diff=False, decomposition=None,
                       poisson_ratio=DEFAULTS.poisson_ratio, jac=False):
-    """props_from_Jac on component planes — the layout big fields must
-    use on TPU. With jac=False the planes are J (I is added here)."""
+    """props_from_Jac on component planes — the layout big fields
+    use. With jac=False the planes are J (I is added here)."""
     eye = 0.0 if jac else 1.0
     return _props_core(J00 + eye, J01, J10, J11 + eye,
                        refangle=refangle, refscale=refscale, diff=diff,
@@ -109,7 +110,7 @@ def svd2x2(A):
     Householder form [[c, s], [s, -c]] — the convention
     numpy.linalg.svd (LAPACK) produces for generic 2x2 inputs, on
     which the props_from_Jac sign-fixing relies. Fully elementwise:
-    ideal for the MXU/VPU instead of host LAPACK loops.
+    fused device passes instead of host LAPACK loops.
     """
     a = A[..., 0, 0]
     b = A[..., 0, 1]
@@ -150,7 +151,7 @@ def props_from_Jac(Jac, refangle=0.0, refscale=1.0, diff=False):
 
     Returns [angle (deg), anisotropy angle (deg, mod 180),
     scale alpha, anisotropy kappa] stacked on a new leading axis.
-    Internally unpacks to component planes immediately (TPU layout).
+    Internally unpacks to component planes immediately.
     """
     Jac = jnp.asarray(Jac)
     return _props_core(Jac[..., 0, 0], Jac[..., 0, 1],
@@ -198,8 +199,7 @@ def u2J_planes(U, nmperpixel):
 def props_from_u(U, nmperpixel, refangle=0.0, refscale=1.0, diff=False,
                  decomposition=None):
     """Local properties directly from a displacement field, entirely in
-    plane layout (no (N, M, 2, 2) materialization — 64x tile padding
-    on TPU makes that layout prohibitive for large fields)."""
+    plane layout (no (N, M, 2, 2) materialization)."""
     J00, J01, J10, J11 = u2J_planes(U, nmperpixel)
     return props_from_planes(J00, J01, J10, J11, refangle=refangle,
                              refscale=refscale, diff=diff,

@@ -30,8 +30,8 @@ from ..gpa.kgeometry import calc_diff_from_isotropic
 
 
 def _mm(a, b):
-    # exact matmul (TPU default is bf16; the LM normal equations are
-    # 4x4 — precision here decides convergence depth)
+    # exact matmul (accelerator defaults are bf16/TF32; the LM normal
+    # equations are 4x4 — precision here decides convergence depth)
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -5,7 +5,7 @@ the (d, 2) stack of 2*pi*k-vectors, via a numba prange loop calling
 np.linalg.lstsq per pixel (myweighed_lstsq,
 /root/reference/pyGPA/geometric_phase_analysis.py:97-113 — HOT LOOP #2
 of the pipeline). Since K has only 2 columns, the normal equations are
-a 2x2 system per pixel; on TPU the whole field reduces to a handful of
+a 2x2 system per pixel; the whole field reduces to a handful of
 fused elementwise multiplies + a closed-form 2x2 solve, no loop and no
 LAPACK.
 """

@@ -3,7 +3,7 @@
 Preconditioned conjugate gradient on the weighted Poisson equation,
 with the unweighted-Poisson preconditioner solved by DCT — exactly the
 algorithm of /root/reference/pyGPA/phase_unwrap.py (HOT LOOP #3 of the
-pipeline), re-expressed TPU-natively:
+pipeline), re-expressed for XLA:
 
  - the CG iteration is a single lax.while_loop (data-dependent stop on
    ||r|| < 1e-9 ||r0|| or k >= kmax), jit-compiled;
@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import jax.lax
 
 from ..config import DEFAULTS
-from ..core.fourier import dct2n, idct2n, mxu_fft_precision
+from ..core.fourier import dct2n, idct2n
 from ..core.mathtools import wrap_to_pi
 
 
@@ -59,61 +59,18 @@ def _apply_q(p, WWx, WWy):
     return WWdx2 + WWdy2
 
 
-# --- lane-aligned stencil forms ------------------------------------------
-# The reference formulation carries (n, m-1)/(n-1, m) difference arrays;
-# on TPU those odd widths force relayouts on every elementwise pass
-# (measured: _residual alone ~13 ms at 4096^2 — as much as 10 CG
-# iterations at 1024^2). The multigrid path instead keeps every plane
-# (n, m) with a structurally-ZERO last column (x-diffs) / row (y-diffs):
-# neighbor shifts become lane/sublane rotations (jnp.roll) and the zero
-# tails make the wrap-around terms vanish, so the arithmetic is
+# --- aligned stencil forms -----------------------------------------------
+# The reference formulation carries (n, m-1)/(n-1, m) difference arrays.
+# The multigrid path instead keeps every plane (n, m) with a
+# structurally-ZERO last column (x-diffs) / row (y-diffs): every
+# elementwise pass then works on one shape, neighbor shifts become
+# rotations (jnp.roll) and the zero tails make the wrap-around terms
+# vanish, so the arithmetic is
 # IDENTICAL to the reference stencils (phase_unwrap.py:118-175) entry
 # for entry. Under GSPMD sharding the rolls lower to halo
 # collective-permutes, so the distributed path shares these forms.
 
 _JACOBI_OMEGA = 0.8   # damped-Jacobi factor (2D optimum 4/5)
-
-# Fused V-branch stencil kernels (ops/pallas_vcycle): "auto" = on for
-# f32 TPU runs (the XLA roll stencils cost ~5x HBM speed-of-light at
-# 4096^2), True = force (interpret mode off-TPU, for tests), False =
-# off. The distributed path (precond_factory) always keeps the XLA
-# forms — their rolls lower to halo collectives under GSPMD.
-_PALLAS_VCYCLE = "auto"
-
-
-def _vcycle_kernel_ok(shape, dtype, weight, precond_factory, cr):
-    from ..ops import pallas_vcycle
-    if _PALLAS_VCYCLE is False or weight is None \
-            or precond_factory is not None:
-        return False
-    if not pallas_vcycle.supported(*shape, cr):
-        return False
-    if _PALLAS_VCYCLE == "auto":
-        return (jax.default_backend() == "tpu"
-                and dtype == jnp.float32)
-    return True
-
-
-# Whole-VMEM coarse-level CG kernel (ops/pallas_cg): same tri-state
-# flag semantics as _PALLAS_VCYCLE. Used for the multigrid coarse
-# solves (aligned forms, default DCT preconditioner) at sizes where a
-# full plane fits in VMEM and both axes admit the direct DCT digit
-# factorization; the reference-exact phase_unwrap/_prediff path
-# (aligned=False, early-stop while_loop) is never rerouted.
-_PALLAS_CG = "auto"
-
-
-def _cg_kernel_ok(shape, dtype):
-    from ..ops import pallas_cg
-    if _PALLAS_CG is False or len(shape) != 2:
-        return False
-    if not pallas_cg.supported(*shape):
-        return False
-    if _PALLAS_CG == "auto":
-        return (jax.default_backend() == "tpu"
-                and dtype == jnp.float32)
-    return True
-
 
 def _mask_last(a, axis):
     """Zero the last slice along `axis` (fused iota compare)."""
@@ -167,59 +124,26 @@ def _jacobi_dinv_aligned(WWx, WWy, omega=_JACOBI_OMEGA):
                      omega / jnp.where(D != 0, D, 1.0), 0.0)
 
 
-def _cg_unwrap(rk0, WWx, WWy, kmax, precision=None, precond=None,
-               aligned=False):
+def _cg_unwrap(rk0, WWx, WWy, kmax, precond=None, aligned=False):
     """PCG loop shared by phase_unwrap and phase_unwrap_prediff
-    (phase_unwrap.py:183-207,326-349). `precision` scopes the MXU
-    DCT matmul precision of the preconditioner (the CG outer products
-    and stencils stay exact float ops); the preconditioner does not
-    have to be exact for CG to converge — its error only modulates the
-    convergence rate — so the default is HIGH (bf16x3, ~1e-7 operand
-    error) for ~2x MXU throughput of the transform-bound solve. Pass
-    HIGHEST for bit-level reproduction of the float32-exact path.
+    (phase_unwrap.py:183-207,326-349).
 
     `precond` overrides the unweighted-Poisson DCT preconditioner
     (a callable rk -> zk, hashable/static) — used by the row-sharded
     distributed solver (parallel/unwrap.py) to substitute the pencil
-    all_to_all DCT.
-
-    The _PALLAS_CG gate is resolved HERE, outside the jitted inner
-    function, and forwarded as a static argument: flag flips change
-    the jit cache key and reliably retrace (a gate read inside the
-    traced body would be baked at first trace and silently ignored on
-    cache hits)."""
-    use_kernel = bool(aligned and precond is None and int(kmax) >= 1
-                      and _cg_kernel_ok(rk0.shape, rk0.dtype))
-    return _cg_unwrap_jit(rk0, WWx, WWy, int(kmax), precision, precond,
-                          aligned, use_kernel)
+    all_to_all DCT."""
+    return _cg_unwrap_jit(rk0, WWx, WWy, int(kmax), precond, aligned)
 
 
-@partial(jax.jit, static_argnames=("kmax", "precision", "precond",
-                                   "aligned", "use_kernel"))
-def _cg_unwrap_jit(rk0, WWx, WWy, kmax, precision=None, precond=None,
-                   aligned=False, use_kernel=False):
-    if precision is None:
-        precision = jax.lax.Precision.HIGH
-    if use_kernel:
-        # whole-VMEM fixed-iteration CG (ops/pallas_cg): one kernel
-        # launch for the whole solve; the guarded coefficients make
-        # post-convergence iterations no-ops, so skipping the early
-        # stop returns the same solution
-        from ..ops import pallas_cg
-        phi = pallas_cg.cg_poisson(rk0, WWx, WWy, kmax, precision)
-        return phi, jnp.asarray(kmax, jnp.int32)
-    with mxu_fft_precision(precision):
-        return _cg_unwrap_body(rk0, WWx, WWy, kmax, precond, aligned)
+@partial(jax.jit, static_argnames=("kmax", "precond", "aligned"))
+def _cg_unwrap_jit(rk0, WWx, WWy, kmax, precond=None, aligned=False):
+    return _cg_unwrap_body(rk0, WWx, WWy, kmax, precond, aligned)
 
 
 def _cg_unwrap_body(rk0, WWx, WWy, kmax, precond=None, aligned=False):
     dt = rk0.dtype
     scale = _poisson_scale(rk0.shape[-2:], dt)
     if precond is None:
-        # note: a fully-fused whole-VMEM Poisson-solve pallas kernel
-        # was tried here (r3) and LOST ~3x to this XLA chain — the
-        # 3-phase grid serializes on the resident scratch, while XLA
-        # pipelines the separate transform launches
         def precond(rk):
             return idct2n(dct2n(rk) / scale)
     # the reference's 1e-9 relative residual is unreachable in float32;
@@ -285,7 +209,7 @@ def phase_unwrap(psi, weight=None, kmax=DEFAULTS.unwrap_kmax,
     141-208): canonically psi is the angle and weight the magnitude of
     a complex lock-in signal. kmax bounds the CG iterations (static for
     jit). Batched over leading axes. With return_iters=True also
-    returns the CG iteration count as a value (the TPU-native
+    returns the CG iteration count as a value (the device-side
     replacement of the reference's debug print at phase_unwrap.py:77).
     """
     psi = jnp.asarray(psi)
@@ -302,10 +226,11 @@ def phase_unwrap_mg(psi, weight=None, kmax=10, coarse=4, **kw):
     uses (phase_unwrap_prediff_mg). Same task as phase_unwrap
     (phase_unwrap.py:141-208) solved by a different algorithm: on
     lock-in-weighted GPA phases the weighted Poisson system is badly
-    conditioned and plain PCG converges slowly — measured on-chip on
-    the 2048^2 benchmark fixture, this path is ~7x faster than 25 CG
-    iterations AND ~7x closer to the converged solution (max err 0.12
-    vs 0.89 rad against a 200-iteration reference). Prefer it whenever
+    conditioned and plain PCG converges slowly — on the 2048^2
+    benchmark fixture this path lands ~7x closer to the converged
+    solution than 25 CG iterations (max err 0.12 vs 0.89 rad against a
+    200-iteration reference) at a fraction of their transforms. Prefer
+    it whenever
     the phase is band-limited (every lock-in output is); phase_unwrap
     remains the reference-exact CG solver."""
     psi = jnp.asarray(psi)
@@ -361,16 +286,17 @@ def _resize_right(m_in, m_out, dtype):
             + (i == hi[None, :]) * t[None, :]).astype(dtype)
 
 
-def _sep2(a, left, right, precision=jax.lax.Precision.HIGH):
-    """left @ a @ right over the last two axes as two MXU einsums —
-    TPU-fast separable resampling (lane-splitting reshape reductions
-    and gather-based resizes are relayout-bound)."""
+def _sep2(a, left, right):
+    """left @ a @ right over the last two axes as two einsums —
+    separable resampling without gathers or lane-splitting reshapes.
+    HIGHEST: with TF32 (Precision.HIGH/DEFAULT on an H100) the
+    multigrid's restriction/prolongation moved the 4096^2 deformed
+    bench gate to 0.102 px (> 0.075)."""
+    hi = jax.lax.Precision.HIGHEST
     if left is not None:
-        a = jnp.einsum("rn,...nm->...rm", left, a,
-                       precision=precision)
+        a = jnp.einsum("rn,...nm->...rm", left, a, precision=hi)
     if right is not None:
-        a = jnp.einsum("...nm,mc->...nc", a, right,
-                       precision=precision)
+        a = jnp.einsum("...nm,mc->...nc", a, right, precision=hi)
     return a
 
 
@@ -391,7 +317,6 @@ def _jacobi_dinv(rk, WWx, WWy, omega=_JACOBI_OMEGA):
 
 def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
                             refine_iters=3,
-                            precision=jax.lax.Precision.HIGH,
                             schedule=None, precond_factory=None,
                             v_coarse_mult=4):
     """Multigrid-accelerated gradient integration: solve the weighted
@@ -419,7 +344,7 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
         c = int(coarse)
         if c >= 4:
             # one mid-level CG iteration matches two to 1e-4 px on the
-            # reference fixtures (measured r3: deconv err 0.0298 vs
+            # reference fixtures (CPU float64: deconv err 0.0298 vs
             # 0.0299, noisy 0.8529 vs 0.8517); the final full-res CG
             # step's line search does the real smooth-defect fix.
             # (Damped-Jacobi or alpha=1 Richardson finals were tried
@@ -428,9 +353,8 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
             # line-search step removes.) The mid level is skipped on
             # large images (DEFAULTS.unwrap_mg_mid="auto", mid grid
             # >= 1024 px): the V-branch finest level revisits a
-            # coarse grid anyway and on-chip the level costs ~30% of
-            # the whole unwrap for a sub-gate accuracy delta; small
-            # images keep it (see config.py).
+            # coarse grid anyway; small images keep it (see
+            # config.py).
             mid_cfg = DEFAULTS.unwrap_mg_mid
             if mid_cfg == "auto":
                 mid_iters = 0 if min(n, m) // (c // 2) >= 1024 else 1
@@ -445,19 +369,15 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
     dt = dx.dtype
     # aligned planes: every level's x/y-diffs live in (rows, cols)
     # arrays with a structurally-zero last column/row (see the
-    # lane-aligned stencil forms above) — the only odd-width arrays in
+    # aligned stencil forms above) — the only odd-width arrays in
     # the whole solve are the user-facing inputs, padded once here
     dxp = _pad_last(dx, -1) if dx.shape[-1] == m - 1 else dx
     dyp = _pad_last(dy, -2) if dy.shape[-2] == n - 1 else dy
 
     def block_mean(a, rows, cols, c):
-        # column (LANE) axis as an averaging matmul: lane-splitting
-        # reshape reductions relayout (~90 ms per V-cycle at 4096^2
-        # measured); the MXU does the same sums in <1 ms. The row
-        # (SUBLANE) axis reduces by plain reshape-mean — no lane
-        # relayout, and it cuts the restriction's MXU work ~20x (the
-        # row-side matmul contracted the FINE length: 137 GFLOP/plane
-        # at 4096^2 vs 7 for the lane side). Under GSPMD the sublane
+        # last (column) axis as a matmul against a block-averaging
+        # matrix; the row axis by plain reshape-mean (a row-side
+        # matmul would contract the FINE length). Under GSPMD the row
         # reshape stays row-sharded when rows*c divides evenly per
         # device (the meshes used keep power-of-two rows).
         a = a[..., : rows * c, : cols * c]
@@ -484,13 +404,12 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
     def upsample(phi, nc, mc):
         rin = phi.shape[-2]
         if nc % rin == 0 and nc // rin > 1:
-            # integer-factor row (SUBLANE) upsample as a shifted-plane
+            # integer-factor row upsample as a shifted-plane
             # interleave: out[c*i + j] = (1-t_j) phi[lo] + t_j phi[lo+1]
             # with the half-pixel offsets o_j = (j+.5)/c - .5 — exactly
             # _resize_right's samples (edge rows clamp, where both taps
-            # coincide). The stack/reshape only splits the sublane
-            # axis, so no lane relayout and ~20x less MXU work than the
-            # row-side interpolation matmul.
+            # coincide): elementwise work instead of a row-side
+            # interpolation matmul over the fine length.
             cfac = nc // rin
             prev = jnp.concatenate([phi[..., :1, :], phi[..., :-1, :]],
                                    axis=-2)
@@ -522,8 +441,8 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
         pre = precond_factory((nc, mc)) if precond_factory else None
         if phi is None:
             rk, WWx, WWy = _residual_aligned(dxc, dyc, wc)
-            phi, _ = _cg_unwrap(rk, WWx, WWy, int(iters), precision,
-                                pre, aligned=True)
+            phi, _ = _cg_unwrap(rk, WWx, WWy, int(iters), pre,
+                                aligned=True)
             continue
         phi = upsample(phi, nc, mc)
         if isinstance(iters, str):
@@ -536,60 +455,35 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
             # energy line search (alpha = <r,p>/<p,Qp> absorbs the
             # restriction scaling) -> damped-Jacobi post-smooth.
             # Replaces the full-resolution DCT-preconditioned CG step
-            # (~23 ms/round at 4096^2) with stencil passes + a coarse
+            # with stencil passes + a coarse
             # CG solve; Jacobi alone FAILS here (the coarse levels'
             # block-averaged weights leave a smooth defect), the
             # coarse revisit is what fixes it. "vv" runs a second
             # correct+smooth round on the updated residual.
             rounds = 2 if iters == "vv" else 1
             cv = int(v_coarse_mult) * int(c)
-            use_kernel = _vcycle_kernel_ok((nc, mc), dt, wc,
-                                           precond_factory, cv)
-            if use_kernel:
-                # whole pre-smooth chain (residual gradients, weights,
-                # residual, Jacobi diag, d, r) in ONE image pass, plus
-                # the restriction's sublane half (rrow)
-                from ..ops import pallas_vcycle
-                r, d, Dinv, rrow = pallas_vcycle.presmooth(
-                    phi, dxc, dyc, wc, cv, _JACOBI_OMEGA)
-                WWx = WWy = None
-            else:
-                rdx = dxc - _mask_last(jnp.roll(phi, -1, axis=-1)
-                                       - phi, -1)
-                rdy = dyc - _mask_last(jnp.roll(phi, -1, axis=-2)
-                                       - phi, -2)
-                rk, WWx, WWy = _residual_aligned(rdx, rdy, wc)
-                Dinv = _jacobi_dinv_aligned(WWx, WWy)
-                d = rk * Dinv
-                r = rk - _apply_q_aligned(d, WWx, WWy)
-                rrow = None
-
-            def apply_q(p):
-                if use_kernel:
-                    from ..ops import pallas_vcycle
-                    return pallas_vcycle.applyq(p, wc)
-                return _apply_q_aligned(p, WWx, WWy)
+            rdx = dxc - _mask_last(jnp.roll(phi, -1, axis=-1)
+                                   - phi, -1)
+            rdy = dyc - _mask_last(jnp.roll(phi, -1, axis=-2)
+                                   - phi, -2)
+            rk, WWx, WWy = _residual_aligned(rdx, rdy, wc)
+            Dinv = _jacobi_dinv_aligned(WWx, WWy)
+            d = rk * Dinv
+            r = rk - _apply_q_aligned(d, WWx, WWy)
 
             dxv, dyv, wv = level_data(cv)
             _, WWxv, WWyv = _residual_aligned(dxv, dyv, wv)
             prev = precond_factory((n // cv, m // cv)) \
                 if precond_factory else None
-            # coarse-correction CG depth: own knob (measured better
-            # than inheriting kmax at 4096^2 — see config.py)
+            # coarse-correction CG depth: DEFAULTS.unwrap_mg_v_kmax
             vk = int(kmax) if DEFAULTS.unwrap_mg_v_kmax is None \
                 else int(DEFAULTS.unwrap_mg_v_kmax)
             for j in range(rounds):
-                if j == 0 and rrow is not None:
-                    # finish the kernel's row-averaged restriction
-                    # with the lane-averaging matmul
-                    r2c = _sep2(rrow, None,
-                                _avg_right(mc, mc // cv, cv, dt))
-                else:
-                    r2c = block_mean(r, n // cv, m // cv, cv)
-                dcor, _ = _cg_unwrap(r2c, WWxv, WWyv, vk,
-                                     precision, prev, aligned=True)
+                r2c = block_mean(r, n // cv, m // cv, cv)
+                dcor, _ = _cg_unwrap(r2c, WWxv, WWyv, vk, prev,
+                                     aligned=True)
                 dcu = upsample(dcor, nc, mc)
-                q = apply_q(dcu)
+                q = _apply_q_aligned(dcu, WWx, WWy)
                 num = jnp.vdot(r, dcu).real.astype(dt)
                 den = jnp.vdot(dcu, q).real.astype(dt)
                 alpha = jnp.where(
@@ -599,7 +493,7 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
                 s = r * Dinv
                 d = d + s
                 if j < rounds - 1:
-                    r = r - apply_q(s)
+                    r = r - _apply_q_aligned(s, WWx, WWy)
             phi = phi + d
             continue
         # residual gradients are small and unwrapped by construction
@@ -607,8 +501,8 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
         rdy = dyc - _mask_last(jnp.roll(phi, -1, axis=-2) - phi, -2)
         if iters > 0:
             rk, WWx, WWy = _residual_aligned(rdx, rdy, wc)
-            dphi, _ = _cg_unwrap(rk, WWx, WWy, int(iters), precision,
-                                 pre, aligned=True)
+            dphi, _ = _cg_unwrap(rk, WWx, WWy, int(iters), pre,
+                                 aligned=True)
             phi = phi + dphi
     if int(schedule[-1][0]) != 1:
         phi = upsample(phi, n, m)
@@ -617,7 +511,7 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
 
 # --- pyGPA.phase_unwrap API-parity surface -------------------------------
 # The reference exposes non-precomputed "reference implementations" and
-# the solver internals (phase_unwrap.py:26-138); on TPU the optimized
+# the solver internals (phase_unwrap.py:26-138); here the optimized
 # and reference paths are the same compiled program.
 
 def _wrapToPi(x):

@@ -2,7 +2,7 @@
 
 The reference ships a CuPy mirror of the lock-in / WFR path
 (/root/reference/pyGPA/cuGPA.py) that users inject into the pipeline
-through the wfr_func plugin seam (tests/test_cuGPA.py:49). On TPU the
+through the wfr_func plugin seam (tests/test_cuGPA.py:49). Here the
 whole framework is already device-native, so these are thin aliases
 with cuGPA's exact names and signatures — including the
 single-precision variant — letting cuGPA users switch by changing one

@@ -7,10 +7,10 @@ reference compiles a fresh numba closure per (image, ks, z) call and
 scatter-adds pixel-by-pixel in a serial double loop (:164-217). Here
 the entire drizzle is one jit-compiled program: coordinate mapping and
 2x2 bilinear overlap weights are fused elementwise math, and the
-accumulation is a single deterministic XLA scatter-add over all
-4*N*M (bin, value) pairs — order-independent by construction, so the
-determinism the reference gets from serialization is preserved on a
-parallel machine.
+accumulation is a single XLA scatter-add over all 4*N*M (bin, value)
+pairs. On a GPU that scatter-add runs as atomics, so the summation
+order — and with it the last bits of each bin — can change from run to
+run; the reference's serial loop is deterministic.
 """
 from functools import partial
 
@@ -139,14 +139,7 @@ def unit_cell_average(image, ks, u=None, z=1, return_weights=False,
     ks_d = jnp.asarray(ks)
 
     def run(image, u=None):
-        from ..ops import pallas_drizzle
         image = jnp.asarray(image)
-        if (jax.default_backend() == "tpu"
-                and pallas_drizzle.supported(rsize)):
-            # scatter-free MXU drizzle (cell resident in VMEM)
-            res, wsum = pallas_drizzle.drizzle(image, ks, rmin, rsize,
-                                               z, u=u)
-            return res / wsum, wsum
         uu = (jnp.zeros((2,) + image.shape, image.dtype) if u is None
               else jnp.asarray(u, image.dtype))
         return _drizzle(image, uu, ks_d, rmin, rsize, int(z))
@@ -164,24 +157,10 @@ def expand_unitcell(unit_cell_image, ks, shape, z=1, z2=1, u=0,
     """Re-expand an averaged unit cell to a full image
     (unit_cell_averaging.py:236-249): inverse-map every output pixel
     into the cell and resample (cubic by default, like the reference's
-    ndi.map_coordinates).
-
-    On TPU this routes through the dedicated periodic-expansion kernel
-    (ops/pallas_expand.py): cell resident in VMEM, coordinates computed
-    in-kernel from the k-vectors, interpolation as dense hat-function
-    matmuls — no gathers and no coordinate arrays, so the sawtooth
-    (mod-1) coordinate field costs nothing."""
+    ndi.map_coordinates)."""
     from ..core import interp
-    from ..ops import pallas_expand
     cell = jnp.nan_to_num(jnp.asarray(unit_cell_image))
     dt = cell.dtype
-    if (jax.default_backend() == "tpu"
-            and pallas_expand.supported(cell.shape, tuple(shape), order)
-            and not isinstance(ks, jax.core.Tracer)):
-        rmin, _ = calc_ucell_parameters(np.asarray(ks), z)
-        uu = None if (isinstance(u, (int, float)) and u == 0) else u
-        return pallas_expand.expand_cell(cell, ks, rmin, z, z2, uu,
-                                         tuple(shape), order=order)
     rr0, rr1 = jnp.mgrid[: shape[0], : shape[1]]
     rr0 = rr0.astype(dt) / z2
     rr1 = rr1.astype(dt) / z2

@@ -1,7 +1,6 @@
-"""Test configuration: CPU backend with a virtual 8-device mesh
-(multi-chip sharding logic is validated on host, per the driver's
-dryrun contract), float64 enabled so reference-grade numerics can be
-checked exactly.
+"""Test configuration: CPU backend with a virtual 8-device mesh (the
+multi-device sharding logic runs on the host), float64 enabled so
+reference-grade numerics can be checked exactly.
 """
 import os
 
@@ -12,15 +11,10 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-# Optional persistent compilation cache (opt-in: set PYGPA_JAX_CACHE
-# to a directory). The suite is compile-bound (~35 of its ~38
-# minutes) and repeated runs re-JIT identical programs, so a warm
-# cache helps iteration — but a cache WRITE has been observed to
-# segfault the CPython process inside put_executable_and_time on this
-# host, so it stays off by default for the canonical green run.
-if os.environ.get("PYGPA_JAX_CACHE"):
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["PYGPA_JAX_CACHE"])
+# Optional persistent compilation cache (opt-in): JAX itself reads
+# JAX_COMPILATION_CACHE_DIR; the suite is compile-bound, so cache even
+# short compiles when it is set.
+if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import numpy as np  # noqa: E402

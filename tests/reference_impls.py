@@ -4,7 +4,7 @@ These independently implement the published algorithms (spatial
 lock-in GPA; windowed-Fourier-ridge sweeps per Kemao 2007; the
 Ghiglia-Romero weighted unwrapping CG) in the straightforward
 modulate->FFT->filter->IFFT formulation the reference uses, so the
-TPU kernels' mathematically-restructured versions (single-FFT shifted
+device code's mathematically-restructured versions (single-FFT shifted
 Gaussian sweep, closed-form lstsq, while_loop CG) can be checked for
 value equivalence — the reference repo's own variant-equivalence test
 strategy (SURVEY.md §4).
@@ -51,33 +51,39 @@ def _wrap(x):
     return (x + np.pi) % (2 * np.pi) - np.pi
 
 
-def ref_phase_unwrap_prediff(dx, dy, weight=None, kmax=100):
-    """Ghiglia-Romero weighted unwrapping PCG from phase differences."""
-    dx = _wrap(dx)
-    dy = _wrap(dy)
+def ref_residual(dx, dy, weight=None):
+    """Initial residual and min-neighbour weights of the weighted
+    Poisson system (phase_unwrap.py:154-175) from (N, M-1) / (N-1, M)
+    differences."""
     if weight is None:
         WWx = np.ones_like(dx)
         WWy = np.ones_like(dy)
-        WWdx, WWdy = dx, dy
     else:
         WW = weight ** 2
         WWx = np.minimum(WW[:, :-1], WW[:, 1:])
         WWy = np.minimum(WW[:-1, :], WW[1:, :])
-        WWdx = WWx * dx
-        WWdy = WWy * dy
-    rk = (np.diff(WWdx, axis=1, prepend=0, append=0)
-          + np.diff(WWdy, axis=0, prepend=0, append=0))
+    rk = (np.diff(WWx * dx, axis=1, prepend=0, append=0)
+          + np.diff(WWy * dy, axis=0, prepend=0, append=0))
+    return rk, WWx, WWy
+
+
+def ref_apply_q(p, WWx, WWy):
+    """(A^T)(W^T W)(A) p (phase_unwrap.py:118-132)."""
+    qdx = WWx * np.diff(p, axis=1)
+    qdy = WWy * np.diff(p, axis=0)
+    return (np.diff(qdx, axis=1, prepend=0, append=0)
+            + np.diff(qdy, axis=0, prepend=0, append=0))
+
+
+def ref_phase_unwrap_prediff(dx, dy, weight=None, kmax=100,
+                             return_iters=False):
+    """Ghiglia-Romero weighted unwrapping PCG from phase differences."""
+    rk, WWx, WWy = ref_residual(_wrap(dx), _wrap(dy), weight)
     norm_r0 = np.linalg.norm(rk)
     n, m = rk.shape
     ii, jj = np.ogrid[0:n, 0:m]
     scale = 2 * (np.cos(np.pi * ii / n) + np.cos(np.pi * jj / m) - 2)
     scale[0, 0] = 1.0
-
-    def apply_q(p):
-        qdx = WWx * np.diff(p, axis=1)
-        qdy = WWy * np.diff(p, axis=0)
-        return (np.diff(qdx, axis=1, prepend=0, append=0)
-                + np.diff(qdy, axis=0, prepend=0, append=0))
 
     phi = np.zeros_like(rk)
     k = 0
@@ -89,13 +95,13 @@ def ref_phase_unwrap_prediff(dx, dy, weight=None, kmax=100):
         rz = np.tensordot(rk, zk)
         pk = zk if k == 1 else zk + (rz / rzprev) * pk
         rzprev = rz
-        Qpk = apply_q(pk)
+        Qpk = ref_apply_q(pk, WWx, WWy)
         alpha = rz / np.tensordot(pk, Qpk)
         phi += alpha * pk
         rk = rk - alpha * Qpk
         if k >= kmax or np.linalg.norm(rk) < 1e-9 * norm_r0:
             break
-    return phi
+    return (phi, k) if return_iters else phi
 
 
 def ref_phase_unwrap(psi, weight=None, kmax=100):

@@ -206,23 +206,21 @@ def test_map_coordinates_cubic_accuracy():
     assert np.abs(cub - true).max() < 0.2 * np.abs(lin - true).max()
 
 
-def test_pallas_dct2_matches_scipy():
-    """The single-pass Pallas DCT kernels (ops/pallas_dct2, the TPU
-    production transform of the unwrap solver; interpret mode on CPU)
-    match scipy exactly, both axes, forward and inverse."""
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_dct_large_axes_match_scipy(n):
+    """The production DCT route at unwrap-solver sizes (both axes,
+    forward and inverse) matches scipy in float64."""
     from scipy.fft import dct as sdct
-    from pygpa_tpu.ops import pallas_dct2 as D
+    from pygpa_tpu.core.fourier import dct2_1d, idct2_1d
     rng = np.random.default_rng(11)
-    for n in (1024, 2048):
-        x = rng.normal(size=(2, n))
-        assert np.allclose(np.asarray(D.dct_lane(jnp.asarray(x))),
-                           sdct(x, type=2, axis=-1), atol=1e-9)
-        y = sdct(x, type=2, axis=-1)
-        assert np.allclose(np.asarray(D.idct_lane(jnp.asarray(y))),
-                           x, atol=1e-11)
-        x2 = rng.normal(size=(n, 136))
-        assert np.allclose(np.asarray(D.dct_sub(jnp.asarray(x2))),
-                           sdct(x2, type=2, axis=0), atol=1e-9)
-        y2 = sdct(x2, type=2, axis=0)
-        assert np.allclose(np.asarray(D.idct_sub(jnp.asarray(y2))),
-                           x2, atol=1e-11)
+    x = rng.normal(size=(2, n))
+    assert np.allclose(np.asarray(dct2_1d(jnp.asarray(x))),
+                       sdct(x, type=2, axis=-1), atol=1e-9)
+    y = sdct(x, type=2, axis=-1)
+    assert np.allclose(np.asarray(idct2_1d(jnp.asarray(y))), x,
+                       atol=1e-11)
+    x2 = rng.normal(size=(n, 136))
+    assert np.allclose(np.asarray(dct2n(jnp.asarray(x2))), dctn(x2),
+                       atol=1e-9 * n)
+    assert np.allclose(np.asarray(idct2n(jnp.asarray(dctn(x2)))), x2,
+                       atol=1e-11 * n)

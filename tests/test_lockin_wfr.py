@@ -1,4 +1,4 @@
-"""Lock-in and WFR sweep: TPU formulations vs the literal NumPy oracle
+"""Lock-in and WFR sweep: single-FFT formulations vs the literal NumPy oracle
 (the reference repo's variant-equivalence strategy,
 /root/reference/tests/test_geometric_phase_analysis.py:82-97)."""
 import numpy as np
@@ -107,177 +107,6 @@ def _grid(k, kw, kstep):
     return np.stack([wx.ravel(), wy.ravel()], -1)
 
 
-def test_fused_zoom_sweep_matches_einsum():
-    """The fully-fused zoom-sweep kernel (ops.pallas_sweep: stage-1 +
-    stage-2 DFT matmuls + tournament) matches the einsum + where-loop
-    formulation (interpret mode on CPU), including the multi-chunk
-    carry path."""
-    from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep
-    rng = np.random.default_rng(0)
-    P, W0, W1, n, m = 5, 64, 64, 256, 384
-    Sr = jnp.asarray(rng.normal(size=(W0, W1)), jnp.float32)
-    Si = jnp.asarray(rng.normal(size=(W0, W1)), jnp.float32)
-    gx = jnp.asarray(rng.uniform(0, 1, size=(P, W0)), jnp.float32)
-    gy = jnp.asarray(rng.uniform(0, 1, size=(P, W1)), jnp.float32)
-    A0c = jnp.asarray(rng.normal(size=(n, W0)), jnp.float32)
-    A0s = jnp.asarray(rng.normal(size=(n, W0)), jnp.float32)
-    A1c = jnp.asarray(rng.normal(size=(m, W1)), jnp.float32)
-    A1s = jnp.asarray(rng.normal(size=(m, W1)), jnp.float32)
-    oa, orr, oi, ox = fused_zoom_sweep(Sr, Si, gx, gy, A0c, A0s,
-                                       A1c, A1s, max_chunk=3,
-                                       interpret=True)
-    # the production bf16x3 split-scratch path must agree within its
-    # documented ~1e-7 relative operand error
-    import jax
-    ha, hr, hi, hx = fused_zoom_sweep(Sr, Si, gx, gy, A0c, A0s,
-                                      A1c, A1s, max_chunk=3,
-                                      precision=jax.lax.Precision.HIGH,
-                                      interpret=True)
-    # winner flips at numerical ties are expected between precisions
-    # (the two-pass kernel's argmax runs at single-pass bf16); values
-    # and amplitudes must agree where the winner agrees
-    same = np.array(hx) == np.array(ox)
-    assert same.mean() > 0.99
-    assert np.allclose(np.array(ha)[same], np.array(oa)[same],
-                       rtol=1e-3, atol=1e-2)
-    assert np.allclose(np.array(hr)[same], np.array(orr)[same],
-                       atol=5e-3)
-    ra = np.zeros((n, m), np.float32)
-    rr = np.zeros((n, m), np.float32)
-    ri = np.zeros((n, m), np.float32)
-    rx = np.zeros((n, m), np.int32)
-    for i in range(P):
-        Swr = np.array(gx[i])[:, None] * np.array(Sr) * np.array(gy[i])
-        Swi = np.array(gx[i])[:, None] * np.array(Si) * np.array(gy[i])
-        Tr = np.array(A0c) @ Swr - np.array(A0s) @ Swi
-        Ti = np.array(A0c) @ Swi + np.array(A0s) @ Swr
-        Mr = Tr @ np.array(A1c).T - Ti @ np.array(A1s).T
-        Mi = Tr @ np.array(A1s).T + Ti @ np.array(A1c).T
-        absq = Mr ** 2 + Mi ** 2
-        t = absq > ra
-        ra = np.where(t, absq, ra)
-        rr = np.where(t, Mr, rr)
-        ri = np.where(t, Mi, ri)
-        rx = np.where(t, i, rx)
-    assert np.allclose(np.array(oa), ra, rtol=1e-4, atol=1e-2)
-    assert np.allclose(np.array(orr), rr, atol=1e-3)
-    assert np.allclose(np.array(oi), ri, atol=1e-3)
-    # index ties can only flip where absq values are within rounding
-    diff = np.array(ox) != rx
-    assert diff.mean() < 1e-3
-
-
-def test_fused_zoom_sweep_multichunk_high_clamps_exact():
-    """A multi-chunk HIGH sweep is clamped to the exact (HIGHEST)
-    path: pass A's single-pass-bf16 absq must never be tournament-
-    compared against exact bf16x3 carries from earlier chunks (the
-    asymmetric comparison biases near-ties toward earlier chunks), so
-    the result is bit-identical to HIGHEST (interpret mode on CPU)."""
-    from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep
-    import jax
-    rng = np.random.default_rng(7)
-    P, W0, W1, n, m = 7, 64, 64, 256, 256
-    Sr = jnp.asarray(rng.normal(size=(W0, W1)), jnp.float32)
-    Si = jnp.asarray(rng.normal(size=(W0, W1)), jnp.float32)
-    gx = jnp.asarray(rng.uniform(0, 1, size=(P, W0)), jnp.float32)
-    gy = jnp.asarray(rng.uniform(0, 1, size=(P, W1)), jnp.float32)
-    A0c = jnp.asarray(rng.normal(size=(n, W0)), jnp.float32)
-    A0s = jnp.asarray(rng.normal(size=(n, W0)), jnp.float32)
-    A1c = jnp.asarray(rng.normal(size=(m, W1)), jnp.float32)
-    A1s = jnp.asarray(rng.normal(size=(m, W1)), jnp.float32)
-    hi = fused_zoom_sweep(Sr, Si, gx, gy, A0c, A0s, A1c, A1s,
-                          max_chunk=3,
-                          precision=jax.lax.Precision.HIGH,
-                          interpret=True)
-    ex = fused_zoom_sweep(Sr, Si, gx, gy, A0c, A0s, A1c, A1s,
-                          max_chunk=3,
-                          precision=jax.lax.Precision.HIGHEST,
-                          interpret=True)
-    for a, b in zip(hi, ex):
-        assert np.array_equal(np.array(a), np.array(b))
-
-
-def test_fused_sweep_phase_weight_emission():
-    """The kernel-emitted phase/weight planes equal the XLA epilogue
-    (interpret mode; rim mask semantics of extract_displacement_field,
-    geometric_phase_analysis.py:923-926)."""
-    from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep
-    import jax
-    rng = np.random.default_rng(3)
-    P, W0, W1, n, m = 4, 64, 64, 256, 256
-    Sr = jnp.asarray(rng.normal(size=(W0, W1)), jnp.float32)
-    Si = jnp.asarray(rng.normal(size=(W0, W1)), jnp.float32)
-    gx = jnp.asarray(rng.uniform(0.2, 1, size=(P, W0)), jnp.float32)
-    gy = jnp.asarray(rng.uniform(0.2, 1, size=(P, W1)), jnp.float32)
-    A0c = jnp.asarray(rng.normal(size=(n, W0)), jnp.float32)
-    A0s = jnp.asarray(rng.normal(size=(n, W0)), jnp.float32)
-    A1c = jnp.asarray(rng.normal(size=(m, W1)), jnp.float32)
-    A1s = jnp.asarray(rng.normal(size=(m, W1)), jnp.float32)
-    dr = 24
-    oa, orr, oi, ox, ph, w = fused_zoom_sweep(
-        Sr, Si, gx, gy, A0c, A0s, A1c, A1s, interpret=True,
-        emit_dr=(dr,))
-    ph_ref = np.arctan2(np.array(oi), np.array(orr))
-    mask = np.full((n, m), 1e-6, np.float32)
-    mask[dr:-dr, dr:-dr] = 1.0 + 1e-6
-    w_ref = np.sqrt(np.maximum(np.array(oa), 0.0)) * mask
-    assert np.allclose(np.array(ph), ph_ref, atol=1e-5)
-    assert np.allclose(np.array(w), w_ref, rtol=1e-5, atol=1e-6)
-
-
-def test_fused_zoom_sweep_grad_matches_einsum():
-    """Kernel-emitted analytic winner gradients (grad_ops path) match
-    the einsum formulation, including the multi-chunk gradient carry
-    (interpret mode on CPU)."""
-    from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep
-    rng = np.random.default_rng(7)
-    P, W0, W1, n, m = 5, 64, 64, 256, 384
-
-    def mk(*shape):
-        return jnp.asarray(rng.normal(size=shape), jnp.float32)
-
-    Sr, Si = mk(W0, W1), mk(W0, W1)
-    S2r, S2i = mk(W0, W1), mk(W0, W1)
-    gx = jnp.asarray(rng.uniform(0.2, 1, size=(P, W0)), jnp.float32)
-    gy = jnp.asarray(rng.uniform(0.2, 1, size=(P, W1)), jnp.float32)
-    A0c, A0s = mk(n, W0), mk(n, W0)
-    A1c, A1s = mk(m, W1), mk(m, W1)
-    A1yc, A1ys = mk(m, W1), mk(m, W1)
-    oa, orr, oi, ox, ogx, ogy = fused_zoom_sweep(
-        Sr, Si, gx, gy, A0c, A0s, A1c, A1s, max_chunk=3,
-        interpret=True, grad_ops=(S2r, S2i, A1yc, A1ys))
-
-    ra = np.zeros((n, m), np.float32)
-    rgx = np.zeros((n, m), np.float64)
-    rgy = np.zeros((n, m), np.float64)
-    rx = np.zeros((n, m), np.int32)
-    A0 = np.array(A0c, np.float64) + 1j * np.array(A0s)
-    A1 = np.array(A1c, np.float64) + 1j * np.array(A1s)
-    A1y = np.array(A1yc, np.float64) + 1j * np.array(A1ys)
-    S = np.array(Sr, np.float64) + 1j * np.array(Si)
-    S2 = np.array(S2r, np.float64) + 1j * np.array(S2i)
-    for i in range(P):
-        g = np.array(gx[i], np.float64)[:, None] * np.array(gy[i])
-        M = A0 @ (g * S) @ A1.T
-        Mx = A0 @ (g * S2) @ A1.T
-        My = A0 @ (g * S) @ A1y.T
-        absq = (M.real ** 2 + M.imag ** 2)
-        ggx = (M.imag * Mx.real - M.real * Mx.imag) / absq
-        ggy = (M.imag * My.real - M.real * My.imag) / absq
-        t = absq > ra
-        ra = np.where(t, absq, ra)
-        rgx = np.where(t, ggx, rgx)
-        rgy = np.where(t, ggy, rgy)
-        rx = np.where(t, i, rx)
-    same = np.array(ox) == rx
-    assert same.mean() > 0.999
-    # gradients are ratios of O(1e3) quantities; f32 kernel vs f64
-    # oracle leaves ~1e-4 relative error
-    sc = np.abs(rgx[same]).mean()
-    assert np.allclose(np.array(ogx)[same], rgx[same], atol=3e-3 * sc)
-    assert np.allclose(np.array(ogy)[same], rgy[same], atol=3e-3 * sc)
-
-
 def test_wfr4_zoom_matches_full_fft(small_lattice):
     """The band-limited (zoom matmul) continuity sweep equals the
     full-FFT sequential path — lockin, winning w, and the analytic
@@ -308,209 +137,10 @@ def test_wfr4_zoom_matches_full_fft(small_lattice):
     assert np.quantile(dgrad, 0.99) < 5e-3
 
 
-def test_plan_zoom_multi_unifies_window_shapes():
-    """When per-peak passbands round to different window widths,
-    _plan_zoom_multi re-plans every peak at the common maximum
-    half-widths (widening is exact), keeping the grouped kernel
-    applicable; the widened window's sweep values match the tight
-    window's through the XLA zoom path."""
-    from pygpa_tpu.ops import wfr as W
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-
-    size = 256
-    r_k, theta = 0.05, 6.0
-    ks = np.array(generate_ks(r_k, theta, kappa=1.003, psi=8.0))[:3]
-    knorms = np.linalg.norm(ks, axis=1)
-    sigma = int(np.ceil(1 / knorms.min()))
-    # very different candidate spreads per peak -> different widths
-    wlists = []
-    for i, pk in enumerate(ks):
-        kw = knorms.mean() / 2.5 * (1.0 + 2.5 * i)
-        kstep = kw / 3
-        wxs = np.arange(pk[0] - kw, pk[0] + kw, kstep)
-        wys = np.arange(pk[1] - kw, pk[1] + kw, kstep)
-        wx, wy = np.meshgrid(wxs, wys, indexing="ij")
-        wlists.append(np.stack([wx.ravel(), wy.ravel()],
-                               -1).astype(np.float32))
-    raw = [W._plan_zoom((size, size), w, float(sigma))
-           for w in wlists]
-    if any(p is None for p in raw):
-        import pytest
-        pytest.skip("fixture spreads defeat the zoom plan entirely")
-    raw_shapes = {(p[0].shape[0], p[1].shape[0]) for p in raw}
-    uni = W._plan_zoom_multi((size, size), wlists, float(sigma))
-    uni_shapes = {(p[0].shape[0], p[1].shape[0]) for p in uni}
-    assert len(uni_shapes) == 1
-    if len(raw_shapes) == 1:
-        # fixture failed to split widths; unification is identity
-        assert uni_shapes == raw_shapes
-        return
-    # widening is exact: sweep peak 0 with its tight window and with
-    # the unified (wider) one through the XLA zoom path
-    img = np.array(hexlattice_gen(r_k, theta, order=2, size=size,
-                                  kappa=1.003, psi=8.0,
-                                  dtype=np.float32))
-    img0 = jnp.asarray(img - img.mean())
-    spectrum = jnp.fft.fft2(img0)
-    i_diff = next(i for i, p in enumerate(raw)
-                  if (p[0].shape[0], p[1].shape[0])
-                  != next(iter(uni_shapes)))
-    wl = jnp.asarray(wlists[i_diff])
-    tight = raw[i_diff]
-    wide = uni[i_diff]
-    a_t = W._wfr_sweep_zoom(spectrum, wl, jnp.asarray(tight[0]),
-                            jnp.asarray(tight[1]), float(sigma),
-                            False, 8)
-    a_w = W._wfr_sweep_zoom(spectrum, wl, jnp.asarray(wide[0]),
-                            jnp.asarray(wide[1]), float(sigma),
-                            False, 8)
-    assert np.array_equal(np.asarray(a_t[3]), np.asarray(a_w[3]))
-    assert np.allclose(np.asarray(jnp.abs(a_t[1])),
-                       np.asarray(jnp.abs(a_w[1])),
-                       rtol=1e-5, atol=1e-6)
-
-
-def test_grouped_sweep_matches_oracle():
-    """The grouped multi-peak kernel (batched stage-1: stacked
-    (P*R, W0) row-basis dot + post-dot column scaling) matches a
-    float64 numpy per-candidate oracle at HIGHEST precision
-    (interpret mode on CPU)."""
-    import jax
-    from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep_grouped
-
-    rng = np.random.default_rng(1)
-    G, P, W0, W1, n, m = 2, 5, 32, 32, 128, 128
-    Srs = jnp.asarray(rng.normal(size=(G, W0, W1)), jnp.float32)
-    Sis = jnp.asarray(rng.normal(size=(G, W0, W1)), jnp.float32)
-    gxs = jnp.asarray(rng.uniform(0.1, 1, size=(G, P, W0)),
-                      jnp.float32)
-    gys = jnp.asarray(rng.uniform(0.1, 1, size=(G, P, W1)),
-                      jnp.float32)
-    A0c = jnp.asarray(rng.normal(size=(G, n, W0)), jnp.float32)
-    A0s = jnp.asarray(rng.normal(size=(G, n, W0)), jnp.float32)
-    A1c = jnp.asarray(rng.normal(size=(G, m, W1)), jnp.float32)
-    A1s = jnp.asarray(rng.normal(size=(G, m, W1)), jnp.float32)
-    dr = 12
-    ph, w = fused_zoom_sweep_grouped(
-        Srs, Sis, gxs, gys, A0c, A0s, A1c, A1s, dr=dr,
-        precision=jax.lax.Precision.HIGHEST, interpret=True)
-    ph, w = np.asarray(ph), np.asarray(w)
-    for g in range(G):
-        ra = np.zeros((n, m))
-        rr = np.zeros((n, m))
-        ri = np.zeros((n, m))
-        A0 = np.array(A0c[g], np.float64) + 1j * np.array(A0s[g])
-        A1 = np.array(A1c[g], np.float64) + 1j * np.array(A1s[g])
-        S0 = np.array(Srs[g], np.float64) + 1j * np.array(Sis[g])
-        for i in range(P):
-            gg = (np.array(gxs[g, i], np.float64)[:, None]
-                  * np.array(gys[g, i], np.float64))
-            M = A0 @ (gg * S0) @ A1.T
-            absq = M.real ** 2 + M.imag ** 2
-            t = absq > ra
-            ra = np.where(t, absq, ra)
-            rr = np.where(t, M.real, rr)
-            ri = np.where(t, M.imag, ri)
-        mask = np.full((n, m), 1e-6)
-        mask[dr:-dr, dr:-dr] = 1.0 + 1e-6
-        dphi = np.abs(((ph[g] - np.arctan2(ri, rr)) + np.pi)
-                      % (2 * np.pi) - np.pi)
-        assert (dphi > 1e-3).mean() == 0.0
-        assert np.allclose(w[g], np.sqrt(ra) * mask, rtol=1e-4,
-                           atol=1e-6)
-
-
-def test_grouped_sweep_grad_matches_single():
-    """The grouped multi-peak kernel's gradient path (emit_grad:
-    winner analytic phase gradients per group) matches the single-peak
-    fused kernel's gradient output per peak, at HIGH and HIGHEST
-    precision (interpret mode on CPU)."""
-    import jax
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-    from pygpa_tpu.ops import wfr as W
-    from pygpa_tpu.ops.pallas_sweep import (fused_zoom_sweep,
-                                            fused_zoom_sweep_grouped)
-
-    size = 128
-    r_k, theta = 0.1, 7.0
-    img = np.array(hexlattice_gen(r_k, theta, order=1, size=size,
-                                  kappa=1.001, psi=10.0,
-                                  dtype=np.float32))
-    ks = np.array(generate_ks(r_k, theta, kappa=1.001, psi=10.0))[:2]
-    knorms = np.linalg.norm(ks, axis=1)
-    sigma = int(np.ceil(1 / knorms.min()))
-    dr = 2 * sigma
-    kw = knorms.mean() / 2.5
-    kstep = kw / 2
-    wlists = []
-    for pk in ks:
-        wxs = np.arange(pk[0] - kw, pk[0] + kw, kstep)
-        wys = np.arange(pk[1] - kw, pk[1] + kw, kstep)
-        wx, wy = np.meshgrid(wxs, wys, indexing="ij")
-        wlists.append(np.stack([wx.ravel(), wy.ravel()], -1))
-    pmin = min(w.shape[0] for w in wlists)
-    wlists = [w[:pmin] for w in wlists]
-    assert pmin >= 8
-
-    img0 = jnp.asarray(img - img.mean())
-    spectrum = jnp.fft.fft2(img0)
-    plans = [W._plan_zoom((size, size), w, float(sigma))
-             for w in wlists]
-    assert all(p is not None for p in plans)
-    n = m = size
-    rdt = jnp.float32
-    scale = jnp.asarray(1.0 / (n * m), rdt)
-    idx0s = jnp.asarray(np.stack([p[0] for p in plans]))
-    idx1s = jnp.asarray(np.stack([p[1] for p in plans]))
-    wl = jnp.asarray(np.stack(wlists))
-    S = jax.vmap(lambda i0, i1: jnp.take(
-        jnp.take(spectrum, i0, axis=0), i1, axis=1))(idx0s, idx1s)
-    A0c, A0s = jax.vmap(lambda i: W._zoom_basis(n, i, rdt))(idx0s)
-    A1c, A1s = jax.vmap(lambda i: W._zoom_basis(m, i, rdt))(idx1s)
-    f0 = jnp.where(idx0s < n // 2, idx0s, idx0s - n).astype(rdt) / n
-    f1 = jnp.where(idx1s < m // 2, idx1s, idx1s - m).astype(rdt) / m
-    s2 = jnp.asarray(2.0 * np.pi ** 2 * sigma ** 2, rdt)
-    wr = wl.astype(rdt)
-    gxs = jnp.exp(-s2 * (f0[:, None, :] + wr[:, :, 0:1]) ** 2)
-    gys = jnp.exp(-s2 * (f1[:, None, :] + wr[:, :, 1:2]) ** 2)
-    tp = 2 * np.pi
-    grad_ops = (-tp * f0[:, :, None] * S.imag * scale,
-                tp * f0[:, :, None] * S.real * scale,
-                -A1s * tp * f1[:, None, :],
-                A1c * tp * f1[:, None, :])
-
-    for prec in (jax.lax.Precision.HIGH, jax.lax.Precision.HIGHEST):
-        ph, w, ggx, ggy = fused_zoom_sweep_grouped(
-            S.real * scale, S.imag * scale, gxs, gys,
-            A0c, A0s, A1c, A1s, grad_ops,
-            dr=int(dr), precision=prec, interpret=True)
-        for g in range(len(wlists)):
-            sg = (grad_ops[0][g], grad_ops[1][g],
-                  grad_ops[2][g], grad_ops[3][g])
-            out = fused_zoom_sweep(
-                S.real[g] * scale, S.imag[g] * scale,
-                gxs[g], gys[g], A0c[g], A0s[g], A1c[g], A1s[g],
-                precision=prec, interpret=True, emit_dr=(dr,),
-                grad_ops=sg)
-            sgx, sgy, sph, sw = out[4], out[5], out[6], out[7]
-            dphi = np.abs((np.asarray(ph[g] - sph) + np.pi)
-                          % (2 * np.pi) - np.pi)
-            # winners agree except bf16 near-ties
-            agree = dphi < 1e-3
-            assert agree.mean() > 1 - 2e-4
-            np.testing.assert_allclose(
-                np.asarray(ggx[g])[agree], np.asarray(sgx)[agree],
-                rtol=2e-3, atol=2e-5)
-            np.testing.assert_allclose(
-                np.asarray(ggy[g])[agree], np.asarray(sgy)[agree],
-                rtol=2e-3, atol=2e-5)
-
-
 def test_phase_weight_multi_grad_matches_wfr_sweep():
     """wfr_sweep_phase_weight_multi(with_grad=True) returns per-peak
     phases/weights/gradients equal to the per-peak wfr_sweep grad
-    path (rebase=False + the wfr2_grad_opt epilogue) on the XLA
-    fallback (CPU: both route through the same zoom matmul sweep)."""
+    path (rebase=False + the wfr2_grad_opt epilogue)."""
     from pygpa_tpu.lattices import hexlattice_gen, generate_ks
     from pygpa_tpu.ops.wfr import (wfr_sweep,
                                    wfr_sweep_phase_weight_multi)
@@ -548,93 +178,10 @@ def test_phase_weight_multi_grad_matches_wfr_sweep():
                                    rtol=0, atol=1e-6)
 
 
-def test_zoom_window_trim_accuracy():
-    """The production pipeline's trimmed zoom window
-    (DEFAULTS.pipeline_gauss_cut, edge G ~ e^-10) changes the sweep
-    lock-in by less than ~1e-4 of its peak magnitude relative to the
-    exact-grade default window (edge G ~ e^-22, sub-f32): the window
-    truncation only drops Gaussian tail mass. Validated here on the
-    XLA zoom path in float64 so the bound is the truncation itself,
-    not f32 rounding (on-chip counterpart: 5e-7 rad winner-phase
-    change at 4096^2)."""
-    import jax
-    from pygpa_tpu.config import DEFAULTS
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-    from pygpa_tpu.ops.wfr import _plan_zoom, _wfr_sweep_zoom
-
-    size, sigma = 512, 8
-    r_k, theta = 0.05, 6.0
-    img = np.asarray(hexlattice_gen(r_k, theta, order=1, size=size),
-                     np.float64)
-    k = np.array(generate_ks(r_k, theta))[0]
-    kw = np.linalg.norm(k) / 2.5
-    wxs = np.arange(k[0] - kw, k[0] + kw, kw)
-    wys = np.arange(k[1] - kw, k[1] + kw, kw)
-    wx, wy = np.meshgrid(wxs, wys, indexing="ij")
-    wlist = np.stack([wx.ravel(), wy.ravel()], -1)
-
-    spectrum = jnp.fft.fft2(jnp.asarray(img - img.mean()))
-    plan22 = _plan_zoom((size, size), wlist, float(sigma))
-    plan10 = _plan_zoom((size, size), wlist, float(sigma),
-                        gauss_cut=DEFAULTS.pipeline_gauss_cut)
-    # the trim must actually shrink the window on this fixture,
-    # otherwise the comparison below is vacuous
-    assert (plan10[0].shape[0] < plan22[0].shape[0]
-            or plan10[1].shape[0] < plan22[1].shape[0])
-    outs = {}
-    for name, plan in (("wide", plan22), ("trim", plan10)):
-        absq, lockin, idx, _ = _wfr_sweep_zoom(
-            spectrum, jnp.asarray(wlist), jnp.asarray(plan[0]),
-            jnp.asarray(plan[1]), float(sigma), False, 4)
-        outs[name] = np.asarray(lockin)
-    scale = np.abs(outs["wide"]).max()
-    assert np.abs(outs["trim"] - outs["wide"]).max() < 2e-4 * scale
-
-
-def test_dft_windows_match_fft_windows():
-    """_dft_windows (skinny forward-DFT matmuls) reproduces the fft2
-    spectrum windows the zoom sweep consumes — the production pipeline
-    skips the full-size FFT entirely. f64 here so the bound is the
-    formulation, not matmul rounding."""
-    import jax
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-    from pygpa_tpu.ops.wfr import (_dft_windows, _plan_zoom_multi)
-
-    size, sigma = 256, 8
-    r_k, theta = 0.05, 6.0
-    rng = np.random.default_rng(7)
-    img = (np.asarray(hexlattice_gen(r_k, theta, order=1, size=size),
-                      np.float64)
-           + 0.05 * rng.standard_normal((size, size)))
-    img -= img.mean()
-    ks = np.array(generate_ks(r_k, theta))[:3]
-    kw = np.linalg.norm(ks, axis=1).mean() / 2.5
-    wlists = []
-    for pk in ks:
-        wxs = np.arange(pk[0] - kw, pk[0] + kw, kw)
-        wys = np.arange(pk[1] - kw, pk[1] + kw, kw)
-        wx, wy = np.meshgrid(wxs, wys, indexing="ij")
-        wlists.append(np.stack([wx.ravel(), wy.ravel()], -1))
-    plans = _plan_zoom_multi((size, size), wlists, float(sigma))
-    assert all(p is not None for p in plans)
-    idx0s = jnp.asarray(np.stack([p[0] for p in plans]))
-    idx1s = jnp.asarray(np.stack([p[1] for p in plans]))
-    Sr, Si = _dft_windows(jnp.asarray(img), idx0s, idx1s, jnp.float64)
-    spec = np.fft.fft2(img)
-    for g in range(len(plans)):
-        ref = spec[np.ix_(np.asarray(idx0s[g]), np.asarray(idx1s[g]))]
-        scale = np.abs(ref).max()
-        np.testing.assert_allclose(np.asarray(Sr[g]), ref.real,
-                                   rtol=0, atol=1e-9 * scale)
-        np.testing.assert_allclose(np.asarray(Si[g]), ref.imag,
-                                   rtol=0, atol=1e-9 * scale)
-
-
 def test_multi_sweep_direct_windows_match_spectrum_path():
     """wfr_sweep_phase_weight_multi with spectrum=None must equal the
-    explicit-spectrum call on the XLA fallback (CPU both route through
-    the same zoom sweep after an internal fft2) — the deferred-FFT
-    restructuring must not change any fallback numerics."""
+    explicit-spectrum call (the same zoom sweep after an internal
+    fft2)."""
     from pygpa_tpu.lattices import hexlattice_gen, generate_ks
     from pygpa_tpu.ops.wfr import wfr_sweep_phase_weight_multi
 
@@ -661,500 +208,218 @@ def test_multi_sweep_direct_windows_match_spectrum_path():
     np.testing.assert_array_equal(np.asarray(wt0), np.asarray(wt1))
 
 
-def test_grouped_kernel_direct_windows(monkeypatch):
-    """The grouped kernel driven by DIRECT DFT windows (interpret mode,
-    forced pallas path) matches the spectrum-fed grouped kernel to
-    matmul rounding: phases equal where the winner amplitude is not
-    degenerate, weights to ~1e-5 relative."""
-    import jax
-    import pygpa_tpu.ops.wfr as wfr_mod
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
+# --- the zoom (band-limited matmul) sweep against the float64 oracle ---
 
-    size = 128
-    r_k, theta = 0.1, 7.0
-    img = np.array(hexlattice_gen(r_k, theta, order=1, size=size,
-                                  dtype=np.float32))
-    ks = np.array(generate_ks(r_k, theta))[:2]
-    knorms = np.linalg.norm(ks, axis=1)
-    sigma = int(np.ceil(1 / knorms.min()))
-    kw = knorms.mean() / 2.5
-    wlists = []
-    for pk in ks:
-        wxs = np.arange(pk[0] - kw, pk[0] + kw, kw / 2)
-        wys = np.arange(pk[1] - kw, pk[1] + kw, kw / 2)
-        wx, wy = np.meshgrid(wxs, wys, indexing="ij")
-        wlists.append(np.stack([wx.ravel(), wy.ravel()], -1))
-    img0 = jnp.asarray((img - img.mean()).astype(np.float32))
-
-    # force the grouped pallas path in interpret mode on CPU
-    monkeypatch.setattr(wfr_mod, "_use_pallas_sweep", lambda: True)
-    import pygpa_tpu.ops.pallas_sweep as ps
-    orig = ps.fused_zoom_sweep_grouped
-
-    def interp(*a, **kw_):
-        kw_["interpret"] = True
-        return orig(*a, **kw_)
-
-    monkeypatch.setattr(ps, "fused_zoom_sweep_grouped", interp)
-    dr = 2 * sigma
-    ph0, wt0 = wfr_mod.wfr_sweep_phase_weight_multi(
-        img0, wlists, sigma, dr, spectrum=jnp.fft.fft2(img0))
-    ph1, wt1 = wfr_mod.wfr_sweep_phase_weight_multi(
-        img0, wlists, sigma, dr)
-    wt0 = np.asarray(wt0)
-    wt1 = np.asarray(wt1)
-    np.testing.assert_allclose(wt1, wt0, rtol=0,
-                               atol=3e-5 * wt0.max())
-    dph = np.abs(np.asarray(ph0) - np.asarray(ph1))
-    dph = np.minimum(dph, 2 * np.pi - dph)
-    # away from near-tie winner flips the phase must agree tightly;
-    # allow a tiny fraction of flip pixels
-    assert (dph > 1e-3).mean() < 1e-3
-    assert np.median(dph) < 1e-5
-
-
-def test_grouped_sweep_uv_matches_xla_prologue():
-    """The uv_ks emission (fused reconstruction prologue: wrapped
-    diffs + per-pixel weighted lstsq inside the sweep launch) matches
-    the XLA prologue of reconstruct_u_inv_from_demod applied to the
-    same kernel's phase/weight planes, up to the shifted layout
-    (output position j holds the diff ending at j; column 0 / row 0
-    are carry garbage). Interpret mode on CPU."""
-    import jax
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-    from pygpa_tpu.ops import wfr as W
-    from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep_grouped
-    from pygpa_tpu.solvers.lstsq import weighted_lstsq_stack
-    from pygpa_tpu.core.mathtools import wrap_to_pi
-
-    size = 128
-    r_k, theta = 0.1, 7.0
-    img = np.array(hexlattice_gen(r_k, theta, order=1, size=size,
-                                  kappa=1.001, psi=10.0,
-                                  dtype=np.float32))
-    ks = np.array(generate_ks(r_k, theta, kappa=1.001, psi=10.0))[:3]
-    knorms = np.linalg.norm(ks, axis=1)
-    sigma = int(np.ceil(1 / knorms.min()))
-    dr = 2 * sigma
-    kw = knorms.mean() / 2.5
-    kstep = kw / 2
-    wlists = []
-    for pk in ks:
-        wxs = np.arange(pk[0] - kw, pk[0] + kw, kstep)
-        wys = np.arange(pk[1] - kw, pk[1] + kw, kstep)
-        wx, wy = np.meshgrid(wxs, wys, indexing="ij")
-        wlists.append(np.stack([wx.ravel(), wy.ravel()], -1))
-    pmin = min(w.shape[0] for w in wlists)
-    wlists = [w[:pmin] for w in wlists]
-
-    img0 = jnp.asarray(img - img.mean())
-    spectrum = jnp.fft.fft2(img0)
-    plans = [W._plan_zoom((size, size), w, float(sigma))
-             for w in wlists]
-    assert all(p is not None for p in plans)
-    n = m = size
-    rdt = jnp.float32
-    scale = jnp.asarray(1.0 / (n * m), rdt)
-    idx0s = jnp.asarray(np.stack([p[0] for p in plans]))
-    idx1s = jnp.asarray(np.stack([p[1] for p in plans]))
-    wl = jnp.asarray(np.stack(wlists))
-    S = jax.vmap(lambda i0, i1: jnp.take(
-        jnp.take(spectrum, i0, axis=0), i1, axis=1))(idx0s, idx1s)
-    A0c, A0s = jax.vmap(lambda i: W._zoom_basis(n, i, rdt))(idx0s)
-    A1c, A1s = jax.vmap(lambda i: W._zoom_basis(m, i, rdt))(idx1s)
-    f0 = jnp.where(idx0s < n // 2 + n % 2, idx0s,
-                   idx0s - n).astype(rdt) / n
-    f1 = jnp.where(idx1s < m // 2 + m % 2, idx1s,
-                   idx1s - m).astype(rdt) / m
-    s2 = jnp.asarray(2.0 * np.pi ** 2 * sigma ** 2, rdt)
-    wr = wl.astype(rdt)
-    gxs = jnp.exp(-s2 * (f0[:, None, :] + wr[:, :, 0:1]) ** 2)
-    gys = jnp.exp(-s2 * (f1[:, None, :] + wr[:, :, 1:2]) ** 2)
-
-    kw_args = dict(dr=int(dr), precision=jax.lax.Precision.HIGHEST,
-                   interpret=True)
-    ph, wt = fused_zoom_sweep_grouped(
-        S.real * scale, S.imag * scale, gxs, gys, A0c, A0s, A1c, A1s,
-        **kw_args)
-    uv_ks = tuple((2 * np.pi * float(k[0]), 2 * np.pi * float(k[1]))
-                  for k in ks)
-    ux, uy, wn = fused_zoom_sweep_grouped(
-        S.real * scale, S.imag * scale, gxs, gys, A0c, A0s, A1c, A1s,
-        None, uv_ks=uv_ks, **kw_args)
-
-    K = 2 * jnp.pi * jnp.asarray(ks, rdt)
-    dbdx = wrap_to_pi(jnp.diff(ph, axis=2) + K[:, 1, None, None])
-    dbdy = wrap_to_pi(jnp.diff(ph, axis=1) + K[:, 0, None, None])
-    dudx = weighted_lstsq_stack(dbdx, K, wt[:, :, :-1])
-    dudy = weighted_lstsq_stack(dbdy, K, wt[:, :-1, :])
-    wnorm = jnp.linalg.norm(wt, axis=0)
-
-    np.testing.assert_allclose(np.asarray(wn), np.asarray(wnorm),
-                               rtol=1e-5, atol=1e-7)
-    # the lstsq quotient amplifies rounding where weights hit the rim
-    # floor; compare the gradient planes where the solve is genuinely
-    # conditioned (interior weights)
-    mx = np.asarray(wt[:, :, :-1]).min(0) > 1e-4
-    my = np.asarray(wt[:, :-1, :]).min(0) > 1e-4
-    dx_k = np.asarray(ux)[:, :, 1:]
-    dy_k = np.asarray(uy)[:, 1:, :]
-    assert np.abs((dx_k - np.asarray(dudx))[:, mx]).max() < 1e-4
-    assert np.abs((dy_k - np.asarray(dudy))[:, my]).max() < 1e-4
-    # and the rim stays finite enough for the unwrap (1e-6 floor)
-    assert np.isfinite(dx_k).all() and np.isfinite(dy_k).all()
-
-
-def test_pipeline_uv_path_matches_pw_path(monkeypatch):
-    """make_displacement_extractor with the fused uv emission
-    (pipeline_fused_uv=True, forced pallas path in interpret mode)
-    recovers the same displacement field as the phase/weight +
-    XLA-prologue route."""
-    import jax
-    import pygpa_tpu.ops.wfr as wfr_mod
-    from pygpa_tpu.config import DEFAULTS
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-    from pygpa_tpu.gpa.pipeline import make_displacement_extractor
-
-    size = 256
-    r_k, theta = 0.1, 7.0
-    img = jnp.asarray(np.array(hexlattice_gen(
-        r_k, theta, order=1, size=size, dtype=np.float32)))
-    ks = np.array(generate_ks(r_k, theta))[:3]
-
-    monkeypatch.setattr(wfr_mod, "_use_pallas_sweep", lambda: True)
-    import pygpa_tpu.ops.pallas_sweep as ps
-    orig = ps.fused_zoom_sweep_grouped
-
-    def interp(*a, **kw_):
-        kw_["interpret"] = True
-        return orig(*a, **kw_)
-
-    monkeypatch.setattr(ps, "fused_zoom_sweep_grouped", interp)
-
-    def with_knob(val):
-        old = DEFAULTS.pipeline_fused_uv
-        object.__setattr__(DEFAULTS, "pipeline_fused_uv", val)
-        try:
-            fn = make_displacement_extractor((size, size), ks)
-            return np.asarray(fn(img))
-        finally:
-            object.__setattr__(DEFAULTS, "pipeline_fused_uv", old)
-
-    u_uv = with_knob(True)
-    u_pw = with_knob(False)
-    assert np.isfinite(u_uv).all()
-    b = 8
-    d = np.abs(u_uv - u_pw)[:, b:-b, b:-b]
-    # same winners, same weights; only f32 arithmetic order differs
-    assert d.max() < 1e-3, d.max()
-
-
-def test_banded_sweep_matches_unbanded(monkeypatch):
-    """The BANDED grouped sweep (col_groups: per-run recentered column
-    sub-windows + base-band bases, winner emissions ramp-corrected;
-    ops/wfr._plan_col_groups) matches the unbanded kernel on all three
-    emission paths (plain phase/weight, fused uv prologue, gradients)
-    to truncation accuracy, the surviving max diffs being amplitude-
-    equivalent near-tie winner flips (weights equal at flipped
-    pixels). Fixture chosen so the planner actually activates
-    (Wb=128 < W1=192)."""
-    import pygpa_tpu.ops.wfr as wfr_mod
-    from pygpa_tpu.ops.wfr import (wfr_sweep_phase_weight_multi,
-                                   wfr_sweep_uv_multi)
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-
-    size, r_k, theta, gc = 512, 0.12, 5.0, 10.0
-    img = np.asarray(hexlattice_gen(r_k, theta, order=1, size=size,
-                                    dtype=np.float32))
-    img = jnp.asarray(img - img.mean())
-    ks = np.asarray(generate_ks(r_k, theta), np.float64)[:3]
-    knorms = np.linalg.norm(ks, axis=1)
-    kw = knorms.mean() / 2.5
-    pts = 4
-    offs = (np.arange(pts) - (pts - 1) / 2) * (2 * kw / pts)
-    wx, wy = np.meshgrid(offs, offs, indexing="ij")
-    grid = np.stack([wx.ravel(), wy.ravel()], -1)
-    wlists = [np.asarray(k)[None] + grid for k in ks]
-    sigma = int(np.ceil(1 / knorms.min()))
-    dr = 2
-
-    plans = wfr_mod._plan_zoom_multi(img.shape, wlists, float(sigma),
-                                     gauss_cut=gc)
-    cg = wfr_mod._plan_col_groups(wlists, plans, size, float(sigma),
-                                  gauss_cut=gc)
-    assert cg is not None and cg[2] < plans[0][1].shape[0], \
-        "fixture no longer activates banding"
-
-    outs = {}
-    for banded in (False, True):
-        monkeypatch.setattr(wfr_mod, "_COL_GROUPS", banded)
-        ph, wt = wfr_sweep_phase_weight_multi(
-            img, wlists, sigma, dr, gauss_cut=gc, interpret=True)
-        uv = wfr_sweep_uv_multi(img, wlists, sigma, dr, ks,
-                                gauss_cut=gc, interpret=True)
-        gr = wfr_sweep_phase_weight_multi(
-            img, wlists, sigma, dr, gauss_cut=gc, with_grad=True,
-            krefs=ks, interpret=True)
-        outs[banded] = (np.asarray(ph), np.asarray(wt),
-                        [np.asarray(a) for a in uv],
-                        [np.asarray(a) for a in gr])
-    ph0, wt0, uv0, gr0 = outs[False]
-    ph1, wt1, uv1, gr1 = outs[True]
-
-    # phases agree to band-truncation accuracy except at winner flips
-    dph = np.abs(np.angle(np.exp(1j * (ph1 - ph0))))
-    flip = dph > 1e-4
-    assert np.percentile(dph, 99) < 5e-5
-    # at HIGH the bf16 pass-A splits differ between band and full
-    # window, so near-tie winner flips are more common than at
-    # HIGHEST — the weight agreement below is the semantic guard
-    assert flip.mean() < 1e-2
-    # weights: truncation-tight in bulk; the tail (winner flips,
-    # including sub-phase-threshold ones) stays within the bf16
-    # pass-A near-tie margin, i.e. flips only ever trade amplitude-
-    # equivalent candidates
-    rel = np.abs(wt1 - wt0) / (np.abs(wt0) + 1e-9)
-    assert np.percentile(rel, 99) < 5e-5
-    assert rel.max() < 2e-2
-    # uv prologue (drop the shifted-layout carry column/row); the
-    # lstsq quotient amplifies near-tie flips, so the p99 bound is
-    # looser than the phase one (measured 2.4e-4 at this fixture)
-    assert np.percentile(np.abs(uv1[0][:, :, 1:] - uv0[0][:, :, 1:]),
-                         99) < 1e-3
-    assert np.percentile(np.abs(uv1[1][:, 1:, :] - uv0[1][:, 1:, :]),
-                         99) < 1e-3
-    dwn = (np.abs(uv1[2] - uv0[2]) / (np.abs(uv0[2]) + 1e-9)).max()
-    assert dwn < 5e-3, dwn
-    # gradient path: ramp correction on the column derivative is
-    # exact — off winner-flip pixels only truncation remains
-    g0, g1 = gr0[2], gr1[2]
-    dg = np.abs(g1 - g0)
-    ok = ~np.broadcast_to(flip[..., None], dg.shape)
-    assert dg[ok].max() < 2e-3
-    assert np.percentile(dg, 99) < 5e-5
-
-
-def test_sweep_over_48_candidates_exact_winners():
-    """P > 48 sweeps take the multi-chunk path at the production
-    default (max_chunk=48), where HIGH is clamped to the exact
-    (HIGHEST) tournament: winners must be bit-identical between HIGH
-    and HIGHEST and match the f64 oracle's argmax up to genuine f32
-    ties. Pins the conscious perf cliff (advisor r3 finding 5): a
-    >48-candidate sweep costs the exact-path rate, it never trades
-    winner correctness."""
-    import jax
-    from pygpa_tpu.ops import wfr as W
-    from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-
-    size = 128
-    r_k, theta = 0.1, 7.0
-    img = np.array(hexlattice_gen(r_k, theta, order=1, size=size,
-                                  dtype=np.float32))
-    img -= img.mean()
-    ks = np.array(generate_ks(r_k, theta))[:3]
+@pytest.fixture(scope="module")
+def oracle_k0(small_lattice):
+    """ref_wfr for the first Bragg peak of small_lattice (with grads)."""
+    img, ks = small_lattice
     k = ks[0]
-    knorms = np.linalg.norm(ks, axis=1)
-    sigma = int(np.ceil(1 / knorms.min()))
-    kw = knorms.mean() / 2.5
-    # 8x8 = 64 candidates > 48
-    offs = (np.arange(8) - 3.5) * (2 * kw / 8)
-    wx, wy = np.meshgrid(k[0] + offs, k[1] + offs, indexing="ij")
-    wlist = np.stack([wx.ravel(), wy.ravel()], -1)
-    P = wlist.shape[0]
-    assert P == 64
+    kw = np.linalg.norm(ks, axis=1).mean() / 2.5
+    kstep = kw / 3
+    sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    ref = ref_wfr(img, sigma, k[0], k[1], kw, kstep, with_grad=True)
+    return k, _grid(k, kw, kstep), sigma, ref
 
-    plan = W._plan_zoom((size, size), wlist, float(sigma))
-    assert plan is not None
+
+@pytest.mark.parametrize("chunk", [2, 3, 5, 7])
+def test_zoom_sweep_matches_oracle_without_grad(small_lattice, oracle_k0,
+                                                chunk):
+    """The zoom sweep (chunk sizes that do and do not divide the 36
+    candidates, so the sentinel padding is exercised) reproduces the
+    oracle's lock-in and winning w in the interior."""
+    img, _ = small_lattice
+    k, wlist, sigma, ref = oracle_k0
+    from pygpa_tpu.ops.wfr import _plan_zoom
+    assert _plan_zoom(img.shape, wlist, float(sigma)) is not None
+    mine = wfr_sweep(jnp.asarray(img), wlist, k, sigma, chunk=chunk,
+                     zoom=True)
+    m = 5 * sigma
+    sl = np.s_[m:-m, m:-m]
+    assert "grad" not in mine
+    assert np.allclose(np.asarray(mine["lockin"])[sl], ref["lockin"][sl],
+                       atol=3e-6)
+    assert np.allclose(np.asarray(mine["w"])[:, m:-m, m:-m],
+                       ref["w"][:, m:-m, m:-m], atol=1e-12)
+
+
+@pytest.mark.parametrize("with_grad", [False, True])
+def test_zoom_sweep_equals_full_fft_sweep(small_lattice, oracle_k0,
+                                          with_grad):
+    """Band-limited and full-FFT sweeps agree everywhere (including the
+    rim) up to the window truncation, G < 3e-10 outside the window."""
+    img, _ = small_lattice
+    k, wlist, sigma, _ = oracle_k0
+    gz = wfr_sweep(jnp.asarray(img), wlist, k, sigma, zoom=True,
+                   with_grad=with_grad)
+    gf = wfr_sweep(jnp.asarray(img), wlist, k, sigma, zoom=False,
+                   with_grad=with_grad)
+    scale = np.abs(np.asarray(gf["lockin"])).max()
+    assert np.abs(np.asarray(gz["lockin"])
+                  - np.asarray(gf["lockin"])).max() < 1e-8 * scale
+    assert np.array_equal(np.asarray(gz["w"]), np.asarray(gf["w"]))
+    if with_grad:
+        assert np.allclose(np.asarray(gz["grad"]), np.asarray(gf["grad"]),
+                           atol=1e-7)
+
+
+def test_zoom_sweep_over_48_candidates(small_lattice):
+    """An 8x8 = 64-candidate grid (more than one chunk of every size the
+    pipeline uses) matches the oracle's winners and lock-in."""
+    img, ks = small_lattice
+    k = ks[1]
+    kw = np.linalg.norm(ks, axis=1).mean() / 2.5
+    kstep = kw / 4
+    wlist = _grid(k, kw, kstep)
+    assert wlist.shape[0] > 48
+    sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    ref = ref_wfr(img, sigma, k[0], k[1], kw, kstep)
+    mine = wfr_sweep(jnp.asarray(img), wlist, k, sigma, chunk=8,
+                     zoom=True)
+    m = 5 * sigma
+    sl = np.s_[m:-m, m:-m]
+    assert np.allclose(np.asarray(mine["w"])[:, m:-m, m:-m],
+                       ref["w"][:, m:-m, m:-m], atol=1e-12)
+    assert np.allclose(np.asarray(mine["lockin"])[sl], ref["lockin"][sl],
+                       atol=3e-6)
+
+
+def test_zoom_sweep_rectangular_image():
+    """Non-square frames (each axis has its own window) match the
+    oracle."""
+    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
+    r_k = 0.15
+    img = np.array(hexlattice_gen(r_k, 13.0, order=1, size=352,
+                                  dtype=np.float64))[:256]
+    img = img - img.mean()
+    ks = np.array(generate_ks(r_k, 13.0))[:3]
+    k = ks[2]
+    kw = np.linalg.norm(ks, axis=1).mean() / 2.5
+    kstep = kw / 3
+    sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    from pygpa_tpu.ops.wfr import _plan_zoom
+    wlist = _grid(k, kw, kstep)
+    plan = _plan_zoom(img.shape, wlist, float(sigma))
+    assert plan is not None and plan[0].shape != plan[1].shape
+    ref = ref_wfr(img, sigma, k[0], k[1], kw, kstep)
+    mine = wfr_sweep(jnp.asarray(img), wlist, k, sigma, zoom=True)
+    m = 5 * sigma
+    sl = np.s_[m:-m, m:-m]
+    assert np.allclose(np.asarray(mine["lockin"])[sl], ref["lockin"][sl],
+                       atol=3e-6)
+
+
+def test_zoom_window_widening_is_exact(small_lattice, oracle_k0):
+    """Widening the spectrum window (align=32 -> the default 64) only
+    adds bins of ~zero Gaussian weight: the sweep is unchanged to
+    float64 rounding."""
+    from pygpa_tpu.ops.wfr import _plan_zoom, _wfr_sweep_zoom
+    img, _ = small_lattice
+    k, wlist, sigma, _ = oracle_k0
     spectrum = jnp.fft.fft2(jnp.asarray(img))
-    n = m = size
-    rdt = jnp.float32
-    scale = jnp.asarray(1.0 / (n * m), rdt)
-    idx0, idx1 = jnp.asarray(plan[0]), jnp.asarray(plan[1])
-    S = jnp.take(jnp.take(spectrum, idx0, axis=0), idx1, axis=1)
-    A0c, A0s = W._zoom_basis(n, idx0, rdt)
-    A1c, A1s = W._zoom_basis(m, idx1, rdt)
-    f0 = jnp.where(idx0 < n // 2, idx0, idx0 - n).astype(rdt) / n
-    f1 = jnp.where(idx1 < m // 2, idx1, idx1 - m).astype(rdt) / m
-    s2 = jnp.asarray(2.0 * np.pi ** 2 * sigma ** 2, rdt)
-    wr = jnp.asarray(wlist, rdt)
-    gx = jnp.exp(-s2 * (f0[None, :] + wr[:, 0:1]) ** 2)
-    gy = jnp.exp(-s2 * (f1[None, :] + wr[:, 1:2]) ** 2)
-
-    outs = {}
-    for prec in (jax.lax.Precision.HIGH, jax.lax.Precision.HIGHEST):
-        outs[prec] = fused_zoom_sweep(
-            S.real * scale, S.imag * scale, gx, gy, A0c, A0s, A1c,
-            A1s, precision=prec, interpret=True)
-    for a, b in zip(outs[jax.lax.Precision.HIGH],
-                    outs[jax.lax.Precision.HIGHEST]):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
-
-    # f64 oracle winner check
-    A0 = np.asarray(A0c, np.float64) + 1j * np.asarray(A0s)
-    A1 = np.asarray(A1c, np.float64) + 1j * np.asarray(A1s)
-    S0 = np.asarray(S, np.complex128) / (n * m)
-    ra = np.full((n, m), -1.0)
-    rx = np.zeros((n, m), np.int32)
-    for i in range(P):
-        gg = (np.asarray(gx, np.float64)[i][:, None]
-              * np.asarray(gy, np.float64)[i])
-        M = A0 @ (gg * S0) @ A1.T
-        absq = M.real ** 2 + M.imag ** 2
-        t = absq > ra
-        ra = np.where(t, absq, ra)
-        rx = np.where(t, i, rx)
-    ox = np.asarray(outs[jax.lax.Precision.HIGHEST][3])
-    mism = ox != rx
-    if mism.any():
-        # only genuine f32 ties may flip
-        oa = np.asarray(outs[jax.lax.Precision.HIGHEST][0],
-                        np.float64)
-        rel = np.abs(oa[mism] - ra[mism]) / np.maximum(ra[mism],
-                                                       1e-30)
-        assert rel.max() < 1e-5
-    # the 8x8 grid's finer spacing makes amplitude near-ties common
-    # (measured 3.2% f32-tie flips, all within 1e-5 relative)
-    assert mism.mean() < 0.05
+    tight = _plan_zoom(img.shape, wlist, float(sigma), align=32)
+    wide = _plan_zoom(img.shape, wlist, float(sigma))
+    assert wide[0].shape[0] > tight[0].shape[0]
+    outs = [_wfr_sweep_zoom(spectrum, jnp.asarray(wlist),
+                            jnp.asarray(p[0]), jnp.asarray(p[1]),
+                            float(sigma), False, 4) for p in (tight, wide)]
+    assert np.array_equal(np.asarray(outs[0][2]), np.asarray(outs[1][2]))
+    scale = np.abs(np.asarray(outs[0][1])).max()
+    assert np.abs(np.asarray(outs[0][1])
+                  - np.asarray(outs[1][1])).max() < 1e-9 * scale
 
 
-def test_refined_sweep_matches_full(monkeypatch):
-    """The two-level pass-A refinement (coarse stride-2 subgrid +
-    adjacent-fine conditional tournament, ops/wfr._plan_refine /
-    pallas_sweep `refine`) matches the full per-candidate tournament
-    on all three emission paths in interpret mode. On smooth lock-in
-    amplitude landscapes the coarse argmax is always adjacent to the
-    true winner, so the outputs are IDENTICAL (flips would appear as
-    phase/weight diffs; gated to tiny fractions here and pinned
-    on-chip in tests_tpu)."""
-    import pygpa_tpu.ops.wfr as wfr_mod
-    from pygpa_tpu.ops.wfr import (wfr_sweep_phase_weight_multi,
-                                   wfr_sweep_uv_multi)
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
-
-    size, r_k, theta = 256, 0.1, 7.0
-    img = np.asarray(hexlattice_gen(r_k, theta, order=1, size=size,
-                                    dtype=np.float32))
-    img = jnp.asarray(img - img.mean())
-    ks = np.asarray(generate_ks(r_k, theta), np.float64)[:3]
-    knorms = np.linalg.norm(ks, axis=1)
-    kw = knorms.mean() / 2.5
-    pts = 6
-    offs = (np.arange(pts) - (pts - 1) / 2) * (2 * kw / pts)
-    wx, wy = np.meshgrid(offs, offs, indexing="ij")
-    grid = np.stack([wx.ravel(), wy.ravel()], -1)
-    wlists = [np.asarray(k)[None] + grid for k in ks]
-    sigma = int(np.ceil(1 / knorms.min()))
-    dr = 2
-
-    plan = wfr_mod._plan_refine(wlists)
-    assert plan is not None and len(plan[0][0]) == 9, \
-        "fixture no longer activates the refinement planner"
-
-    outs = {}
-    for refine in (False, True):
-        monkeypatch.setattr(wfr_mod, "_REFINE", refine)
-        ph, wt = wfr_sweep_phase_weight_multi(
-            img, wlists, sigma, dr, interpret=True)
-        uv = wfr_sweep_uv_multi(img, wlists, sigma, dr, ks,
-                                interpret=True)
-        gr = wfr_sweep_phase_weight_multi(
-            img, wlists, sigma, dr, with_grad=True, krefs=ks,
-            interpret=True)
-        outs[refine] = (np.asarray(ph), np.asarray(wt),
-                        [np.asarray(a) for a in uv],
-                        [np.asarray(a) for a in gr])
-    ph0, wt0, uv0, gr0 = outs[False]
-    ph1, wt1, uv1, gr1 = outs[True]
-    # flips happen ONLY in the rim band, where the lock-in window
-    # hangs off the image, the amplitude landscape is edge garbage,
-    # and the emission mask floors the weight to 1e-6 (measured on
-    # this fixture: interior flip fraction exactly 0, all flips
-    # outside the dr rim) — assert the region the pipeline consumes
-    b = 4 * sigma
-    core = np.s_[:, b:-b, b:-b]
-    dph = np.abs(np.angle(np.exp(1j * (ph1 - ph0))))[core]
-    assert dph.max() == 0.0
-    rel = (np.abs(wt1 - wt0) / (np.abs(wt0) + 1e-9))[core]
-    assert rel.max() == 0.0
-    for a, b2 in zip(uv0[:2], uv1[:2]):
-        assert np.abs(a - b2)[:, b:-b, b:-b].max() == 0.0
-    assert np.abs(uv0[2] - uv1[2])[b:-b, b:-b].max() == 0.0
-    ga = np.abs(gr0[2] - gr1[2])[:, b:-b, b:-b]
-    assert ga.max() == 0.0
+def test_multi_peak_matches_per_peak(small_lattice):
+    """wfr_sweep_phase_weight_multi stacks exactly the per-peak
+    wfr_sweep_phase_weight results."""
+    from pygpa_tpu.ops.wfr import (wfr_sweep_phase_weight,
+                                   wfr_sweep_phase_weight_multi)
+    img, ks = small_lattice
+    kw = np.linalg.norm(ks, axis=1).mean() / 2.5
+    sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    wlists = [_grid(k, kw, kw / 3) for k in ks]
+    img0 = jnp.asarray(img)
+    ph, wt = wfr_sweep_phase_weight_multi(img0, wlists, sigma, 2 * sigma,
+                                          chunk=4)
+    assert ph.shape == wt.shape == (3,) + img.shape
+    for i, w in enumerate(wlists):
+        p1, w1 = wfr_sweep_phase_weight(img0, w, ks[i], sigma, 2 * sigma,
+                                        chunk=4)
+        np.testing.assert_array_equal(np.asarray(ph[i]), np.asarray(p1))
+        np.testing.assert_array_equal(np.asarray(wt[i]), np.asarray(w1))
 
 
-def test_plan_refine_rejects_non_grids():
-    """Arbitrary (non-grid) candidate banks must fall back to the full
-    tournament."""
-    import pygpa_tpu.ops.wfr as wfr_mod
+@pytest.mark.parametrize("dr", [1, 9])
+def test_phase_weight_rim_mask(small_lattice, oracle_k0, dr):
+    """weight = |lockin| * (interior mask + 1e-6) with a dr-wide rim
+    (extract_displacement_field's weighting), phase = angle of the
+    demodulated lock-in."""
+    from pygpa_tpu.ops.wfr import wfr_sweep_phase_weight
+    img, _ = small_lattice
+    k, wlist, sigma, _ = oracle_k0
+    ph, wt = wfr_sweep_phase_weight(jnp.asarray(img), wlist, k, sigma, dr)
+    g = wfr_sweep(jnp.asarray(img), wlist, k, sigma, rebase=False)
+    lock = np.asarray(g["lockin"])
+    mask = np.zeros(img.shape)
+    mask[dr:-dr, dr:-dr] = 1.0
+    np.testing.assert_allclose(np.asarray(wt), np.abs(lock) * (mask + 1e-6),
+                               rtol=1e-12, atol=0)
+    np.testing.assert_allclose(np.asarray(ph), np.angle(lock), atol=1e-12)
+
+
+def test_phase_weight_rejects_empty_rim(small_lattice, oracle_k0):
+    from pygpa_tpu.ops.wfr import wfr_sweep_phase_weight
+    img, _ = small_lattice
+    k, wlist, sigma, _ = oracle_k0
+    with pytest.raises(ValueError, match="dr >= 1"):
+        wfr_sweep_phase_weight(jnp.asarray(img), wlist, k, sigma, 0)
+
+
+def test_traced_wlist_falls_back_to_full_fft(small_lattice, oracle_k0):
+    """A traced candidate list cannot be planned: zoom='auto' warns and
+    takes the full-FFT sweep (same values), zoom=True refuses."""
+    import jax
+    img, _ = small_lattice
+    k, wlist, sigma, _ = oracle_k0
+    with pytest.warns(UserWarning, match="traced"):
+        out = jax.jit(lambda w: wfr_sweep(jnp.asarray(img), w, k,
+                                          sigma)["lockin"])(
+            jnp.asarray(wlist))
+    ref = wfr_sweep(jnp.asarray(img), wlist, k, sigma, zoom=False)
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref["lockin"]),
+                               atol=1e-12)
+    with pytest.raises(ValueError, match="concrete"):
+        jax.jit(lambda w: wfr_sweep(jnp.asarray(img), w, k, sigma,
+                                    zoom=True)["lockin"])(
+            jnp.asarray(wlist))
+
+
+def test_zoom_true_refuses_a_wide_window():
+    """zoom=True raises when the bandpass window spans most of the
+    spectrum (no plan), instead of silently running the full FFT."""
     rng = np.random.default_rng(0)
-    w = rng.normal(size=(36, 2))
-    assert wfr_mod._plan_refine([w]) is None
-    # a 3x3 grid is too small to profit
-    offs = np.arange(3) * 0.01
-    wx, wy = np.meshgrid(offs, offs, indexing="ij")
-    w = np.stack([wx.ravel(), wy.ravel()], -1)
-    assert wfr_mod._plan_refine([w]) is None
-    # a proper 4x4 grid plans, with 4 coarse cells and full coverage
-    offs = np.arange(4) * 0.01
-    wx, wy = np.meshgrid(offs, offs, indexing="ij")
-    w = np.stack([wx.ravel(), wy.ravel()], -1)
-    plan = wfr_mod._plan_refine([w])
-    assert plan is not None
-    coarse, neigh = plan[0]
-    assert len(coarse) == 4
-    assert all(n is None for i, n in enumerate(neigh) if i in coarse)
-    assert all(n for i, n in enumerate(neigh) if i not in coarse)
+    img = jnp.asarray(rng.normal(size=(32, 32)))
+    wlist = _grid(np.array([0.2, 0.1]), 0.1, 0.05)
+    with pytest.raises(ValueError, match="worthwhile"):
+        wfr_sweep(img, wlist, np.array([0.2, 0.1]), 2, zoom=True)
 
 
-def test_grouped_sweep_row_stepping_invariant(monkeypatch):
-    """The VMEM-aware row stepping of the grouped driver (added when
-    the gauss_cut=7 8192^2 plan overflowed the 100 MB scoped-VMEM
-    stack at the static rows=128 choice) must not change results:
-    forcing the budget to its minimum makes the driver halve the row
-    block to 8, which exercises the cross-row-block carry discipline
-    of all three emission paths; outputs must match the default
-    tiling bit-for-bit in interpret mode."""
-    import pygpa_tpu.ops.pallas_sweep as ps
-    from pygpa_tpu.ops.wfr import (wfr_sweep_phase_weight_multi,
-                                   wfr_sweep_uv_multi)
-    from pygpa_tpu.lattices import hexlattice_gen, generate_ks
+def test_return_absq_is_winner_amplitude(small_lattice, oracle_k0):
+    """return_absq gives |demodulated lock-in|^2 of the winner."""
+    img, _ = small_lattice
+    k, wlist, sigma, _ = oracle_k0
+    g = wfr_sweep(jnp.asarray(img), wlist, k, sigma, rebase=False,
+                  return_absq=True, with_w=False)
+    assert "w" not in g
+    np.testing.assert_allclose(np.asarray(g["absq"]),
+                               np.abs(np.asarray(g["lockin"])) ** 2,
+                               rtol=1e-12, atol=1e-300)
 
-    size = 256
-    img = np.asarray(hexlattice_gen(0.12, 5.0, order=1, size=size,
-                                    dtype=np.float32))
-    img = jnp.asarray(img - img.mean())
-    ks = np.asarray(generate_ks(0.12, 5.0), np.float64)[:3]
-    knorms = np.linalg.norm(ks, axis=1)
-    kw = knorms.mean() / 2.5
-    pts = 4
-    offs = (np.arange(pts) - (pts - 1) / 2) * (2 * kw / pts)
-    wx, wy = np.meshgrid(offs, offs, indexing="ij")
-    grid = np.stack([wx.ravel(), wy.ravel()], -1)
-    wlists = [np.asarray(k)[None] + grid for k in ks]
-    sigma = int(np.ceil(1 / knorms.min()))
-    dr = 2
 
-    def run():
-        ph, wt = wfr_sweep_phase_weight_multi(
-            img, wlists, sigma, dr, interpret=True)
-        uv = wfr_sweep_uv_multi(img, wlists, sigma, dr, ks,
-                                interpret=True)
-        gr = wfr_sweep_phase_weight_multi(
-            img, wlists, sigma, dr, with_grad=True, krefs=ks,
-            interpret=True)
-        return ([np.asarray(ph), np.asarray(wt)]
-                + [np.asarray(a) for a in uv]
-                + [np.asarray(a) for a in gr])
-
-    ref = run()
-    monkeypatch.setattr(ps, "_RAW_BUDGET", 1)   # force rows -> 8
-    stepped = run()
-    for a, b in zip(ref, stepped):
-        # shifted-layout carry col/row of the uv planes is garbage by
-        # contract; compare the consumed region only
-        if a.ndim == 3 and a.shape[0] == 2:     # dudx/dudy planes
-            a = a[:, 1:, 1:]
-            b = b[:, 1:, 1:]
-        assert np.array_equal(a, b), (a.shape, np.abs(a - b).max())
+def test_multi_grad_requires_krefs(small_lattice, oracle_k0):
+    from pygpa_tpu.ops.wfr import wfr_sweep_phase_weight_multi
+    img, _ = small_lattice
+    _, wlist, sigma, _ = oracle_k0
+    with pytest.raises(ValueError, match="krefs"):
+        wfr_sweep_phase_weight_multi(jnp.asarray(img), [wlist], sigma,
+                                     2 * sigma, with_grad=True)

@@ -188,8 +188,8 @@ def test_sharded_unwrap_matches_single():
 
 def test_sharded_pipeline_end_to_end():
     """extract_displacement_field_sharded == the single-device demod
-    pipeline on a row-sharded image (VERDICT r2 item 3: the >HBM
-    single-image path now runs sweep -> lstsq -> unwrap sharded)."""
+    pipeline on a row-sharded image (the larger-than-one-device
+    single-image path runs sweep -> lstsq -> unwrap sharded)."""
     from pygpa_tpu.parallel import extract_displacement_field_sharded
     from pygpa_tpu.gpa.pipeline import make_displacement_extractor
     r_k = 0.12
@@ -208,3 +208,29 @@ def test_sharded_pipeline_end_to_end():
     # same math, different reduction orders (pencil transforms,
     # partitioned matmuls)
     assert np.allclose(u_sh, u_ref, atol=1e-6)
+
+
+def test_spatial_sweep_dots_keep_their_precision():
+    """Every dot of the row-sharded zoom sweep still carries HIGHEST
+    after shard_map partitioning (a DotAlgorithmPreset is dropped there
+    and the GPU then runs the dots in TF32)."""
+    from pygpa_tpu.parallel import wfr_sweep_spatial
+    r_k = 0.12
+    img = np.array(hexlattice_gen(r_k, 9.0, order=1, size=128,
+                                  dtype=np.float32))
+    img = jnp.asarray(img - img.mean())
+    ks = np.array(generate_ks(r_k, 9.0))[:3]
+    k = ks[0]
+    kw = np.linalg.norm(ks, axis=1).mean() / 2.5
+    wxs = np.arange(k[0] - kw, k[0] + kw, kw / 3)
+    wx, wy = np.meshgrid(wxs, np.arange(k[1] - kw, k[1] + kw, kw / 3),
+                         indexing="ij")
+    wlist = np.stack([wx.ravel(), wy.ravel()], -1)
+    mesh = make_mesh(4, ("batch",))
+    spec = jnp.fft.fft2(img)
+    txt = jax.jit(lambda s: wfr_sweep_spatial(
+        img, wlist, k, 8, mesh, spectrum=s)["absq"]).lower(
+            spec).compile().as_text()
+    dots = [ln for ln in txt.splitlines() if " dot(" in ln]
+    assert len(dots) >= 4
+    assert all("operand_precision={highest,highest}" in ln for ln in dots)

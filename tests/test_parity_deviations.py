@@ -9,12 +9,13 @@ the claims carry numbers (and fail if a change ever widens a band):
    difference must be confined to a rim of width 2*round(2*sigma)
    (the Gabor support diameter) and be zero (f64-exact) inside it.
 
-2. wfr2_grad gradients: the fused kernel path returns analytic
-   derivatives of the band-limited interpolant where the reference
-   takes central differences of the wrapped winner phase
+2. wfr4 gradients: the band-limited (zoom) continuity sweep returns
+   analytic derivatives of the band-limited interpolant where the
+   reference takes central differences of the wrapped winner phase
    (/root/reference/pyGPA/geometric_phase_analysis.py:722-760,
    np.gradient). On smooth phase they agree to O(h^2); the measured
-   interior delta is pinned here.
+   interior delta is pinned here. (The other sweeps take np.gradient
+   like the reference.)
 
 Note the OTHER Gaussian smoothing surfaces are NOT deviations:
 gauss_homogenize2 reflect-pads before its FFT filter, and the lock-in
@@ -83,10 +84,12 @@ def test_wff_circular_vs_reflect_rim_band():
 
 
 def test_wfr_grad_analytic_vs_central_difference():
-    """The fused kernel's analytic gradients vs the reference's
-    central-difference-of-wrapped-phase (np.gradient) oracle: O(h^2)
-    agreement on smooth phase, interior delta < 2e-3 rad/px."""
-    from pygpa_tpu.ops.wfr import wfr_sweep
+    """The zoom continuity sweep's analytic gradients vs the
+    reference's central-difference-of-wrapped-phase (np.gradient)
+    oracle: O(h^2) agreement on smooth phase. A continuity radius far
+    beyond the candidate grid never binds, so the winners are the plain
+    sweep's."""
+    from pygpa_tpu.ops.wfr import wfr_sweep, _plan_zoom
     from reference_impls import ref_wfr
 
     r_k, theta, size = 0.15, 13.0, 192
@@ -105,14 +108,14 @@ def test_wfr_grad_analytic_vs_central_difference():
     wys = np.arange(k[1] - kw, k[1] + kw, kstep)
     wx, wy = np.meshgrid(wxs, wys, indexing="ij")
     wlist = np.stack([wx.ravel(), wy.ravel()], -1)
-    # float32 + interpret forces the fused kernel (analytic) path
+    assert _plan_zoom(img.shape, wlist, float(sigma)) is not None
     mine = wfr_sweep(jnp.asarray(img, jnp.float32), wlist, k, sigma,
-                     with_grad=True, interpret=True)
+                     with_grad=True, continuity_dk=10.0)
     grad_k = np.asarray(mine["grad"], np.float64)
 
     m = 5 * sigma
     sl = np.s_[m:-m, m:-m]
-    # winner flips (bf16 near-ties vs the f64 oracle) change the
+    # winner flips (float32 near-ties vs the f64 oracle) change the
     # demod ramp by multiples of 2*pi*kstep — exclude them
     same = (np.linalg.norm(np.moveaxis(np.asarray(mine["w"],
                                                   np.float64), 0, -1)
@@ -121,10 +124,7 @@ def test_wfr_grad_analytic_vs_central_difference():
     mask = same[sl]
     delta = np.abs(grad_k[sl] - ref["grad"][sl])[mask]
     assert mask.mean() > 0.98
-    # measured 4.9e-7 rad/px max at this fixture (6.1e-7 with a
-    # curved-phase shift field: the O(h^2) CD error is negligible on
-    # sigma-smooth phase) — pin with wide headroom so a convention
-    # break (sign, 2*pi, axis swap, the banded ramp correction) trips
-    # it immediately while f32 noise cannot
+    # pinned with wide headroom so a convention break (sign, 2*pi, axis
+    # swap) trips it immediately while float32 noise cannot
     assert delta.max() < 1e-4, delta.max()
     assert np.percentile(delta, 99) < 2e-5

@@ -89,7 +89,7 @@ def test_factory_matches_eager(testset_gaussian):
 
 def test_reconstruction_coarse_inversion(testset_gaussian,
                                          gaussiandeform):
-    """The coarse-grid displacement inversion (TPU fast path) must meet
+    """The coarse-grid displacement inversion (coarse > 1) must meet
     the same reference tolerance as the exact path."""
     import numpy as np
     original, deformed, noise, ori_ks = testset_gaussian
@@ -174,3 +174,23 @@ def test_invert_u_dual_warp_matches_per_component():
             interp.map_coordinates(jnp.asarray(us[1]), coords, order=1,
                                    mode="nearest")])
     assert np.allclose(np.asarray(fast), np.asarray(cur), atol=1e-12)
+
+
+def test_pipeline_candidate_grids_fixed_count():
+    """The production candidate grids have exactly (2*ksteps)^2 points
+    per Bragg peak even where np.arange's rounded endpoint spills an
+    extra sample (the 4096^2 bench fixture's first peak: 6 x 7), so the
+    single-device and the sharded pipelines sweep the same candidates."""
+    from pygpa_tpu.gpa.api import _wgrid
+    from pygpa_tpu.gpa.pipeline import pipeline_candidate_grids
+    from pygpa_tpu.lattices import generate_ks
+    ks = np.asarray(generate_ks(0.02, 5.0, kappa=1.005, psi=10.0))[:3]
+    knorms = np.linalg.norm(ks, axis=1)
+    kw = knorms.mean() / 2.5
+    assert any(len(_wgrid(k[0], k[1], kw, kw / 3)) != 36 for k in ks)
+    sig, wlists = pipeline_candidate_grids(ks)
+    assert sig == int(np.ceil(1 / knorms.min()))
+    for k, w in zip(ks, wlists):
+        assert w.shape == (36, 2)
+        np.testing.assert_allclose(w.mean(axis=0), k - kw / 6, atol=1e-15)
+        np.testing.assert_allclose(w[0], k - kw, atol=1e-15)

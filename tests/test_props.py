@@ -151,7 +151,7 @@ def test_u2J_and_phases2J_consistency(gaussiandeform):
 
 def test_plane_layout_matches_jac_layout():
     """props_from_planes / props_from_u == props_from_Jac / u2J path
-    (the plane layout avoids TPU's 64x trailing-dim tile padding)."""
+    (the plane layout big fields use)."""
     import pygpa_tpu.props as pe2
     rng = np.random.default_rng(7)
     u = rng.normal(size=(2, 24, 24)).cumsum(axis=1) * 0.01

@@ -97,9 +97,9 @@ def test_phase_unwrap_mg_beats_cg25_on_weighted_fixture():
     phase_unwrap surface) must land at least as close to the CONVERGED
     weighted solution as 25 plain CG iterations do. On lock-in-like
     weights the weighted Poisson system is badly conditioned — this is
-    the measured regime that motivated the benchmark config-3 switch
-    (on-chip 2048^2: mg 6.6 ms / 0.12 rad vs CG-25 44.5 ms / 0.89 rad
-    against a 200-iteration reference)."""
+    the regime that motivated the benchmark config-3 switch (2048^2
+    fixture: mg 0.12 rad vs CG-25 0.89 rad against a 200-iteration
+    reference)."""
     N2 = 384
     xx, yy = np.meshgrid(np.arange(N2), np.arange(N2), indexing="ij")
     psi0 = (0.15 * (xx + yy)
